@@ -1,0 +1,369 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+  python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
+   into ``build/kernels/``; print the toolchain and the card.
+2. Hold each kernel against its plain PyTorch version on the card, at the
+   serve driver's full-width olmo-1b shapes and at head_dim 96 (phi3-mini),
+   and time the kernel, the plain version and a library yardstick.
+3. Run the serve driver at full olmo-1b width (16 layers, d_model 2048) and
+   check its counts and that it went through both kernels.
+4. Profile one more such run and print where its device time goes.
+
+The last lines are a JSON object per kernel, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.  There is no CPU fallback: with
+no card the script exits non-zero before doing anything.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+SERVE_FULL = ["--arch", "olmo-1b", "--full"]
+EXPECT_FULL = ("completed=24/24 decode_steps=62 compaction_steps=12 "
+               "compaction_dmas=2880 alloc_failures=0")
+SERVE_SMOKE = ["--arch", "olmo-1b"]
+EXPECT_SMOKE = ("completed=24/24 decode_steps=62 compaction_steps=12 "
+                "compaction_dmas=360 alloc_failures=0")
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 outside the
+# tensor cores.  Bounds are stated against them.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+SEED = 0
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def sh(*cmd: str) -> str:
+    return subprocess.run(cmd, check=True, capture_output=True,
+                          text=True).stdout.strip()
+
+
+# The spin lasts at least its nominal time on any clock up to 2 GHz.
+SPIN_CYCLES_PER_MS = 2.0e6
+
+
+def device_ms(label: str, fn, iters: int = 50) -> float:
+    """Device time of one call, free of host overhead: the calls are queued
+    behind a spin kernel, then run back to back between two events."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    spin_ms = 2 * (time.perf_counter() - t) * 1e3 + 5
+    for _ in range(3):
+        torch.cuda.synchronize()
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+        e1.record()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t) * 1e3
+        e2.record()
+        torch.cuda.synchronize()
+        if host_ms < e0.elapsed_time(e1):
+            break
+        spin_ms *= 4
+    else:
+        print(f"  note: {label}: queueing outlasted the spin, so this time "
+              "includes host gaps", flush=True)
+    return e1.elapsed_time(e2) / iters
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t = time.perf_counter()
+    reports = _build.build_all()
+    print(f"[build] {len(reports)} libraries built in "
+          f"{time.perf_counter() - t:.1f}s into {_build.BUILD_DIR}")
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print(f"[build] {name}: {line.strip()}")
+    print(f"[build] torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"[build] {sh(_build.nvcc(), '--version').splitlines()[-1]}")
+    print(f"[build] device {torch.cuda.get_device_name(0)} "
+          f"capability {torch.cuda.get_device_capability(0)}", flush=True)
+
+
+def paged_inputs(gen, rng, b, h, hkv, d, p_total, page, n_pages, q_dtype,
+                 kv_dtype):
+    dev = "cuda"
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(q_dtype)
+    k_pool = torch.randn((p_total, page, hkv, d), generator=gen,
+                         device=dev).to(kv_dtype)
+    v_pool = torch.randn((p_total, page, hkv, d), generator=gen,
+                         device=dev).to(kv_dtype)
+    pt = np.full((b, n_pages), -1, np.int32)
+    lengths = np.zeros((b,), np.int32)
+    for i in range(b):
+        used = int(rng.integers(1, n_pages + 1))
+        pt[i, :used] = rng.choice(p_total, size=used, replace=False)
+        lengths[i] = int(rng.integers((used - 1) * page + 1, used * page + 1))
+    return (q, k_pool, v_pool, torch.from_numpy(pt).to(dev),
+            torch.from_numpy(lengths).to(dev))
+
+
+def phase_paged_attention():
+    """K1 against its plain version; returns the record of the serve
+    driver's case (f32 q over a bf16 pool, olmo-1b widths)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (label, B, H, Hkv, D, P, page, n_pages, q dtype, pool dtype, tol)
+    cases = [
+        ("olmo-1b f32q/bf16", 4, 16, 16, 128, 256, 4, 12, f32, bf16, 2e-3),
+        ("olmo-1b bf16/bf16", 4, 16, 16, 128, 256, 4, 12, bf16, bf16, 3e-2),
+        ("phi3-mini f32q/bf16", 4, 32, 32, 96, 256, 4, 12, f32, bf16, 2e-3),
+        ("phi3-mini bf16/bf16", 4, 32, 32, 96, 256, 4, 12, bf16, bf16, 3e-2),
+    ]
+    record = None
+    for label, b, h, hkv, d, p_total, page, n_pages, qd, kvd, tol in cases:
+        args = paged_inputs(gen, rng, b, h, hkv, d, p_total, page, n_pages,
+                            qd, kvd)
+        if label.startswith("phi3-mini f32q"):
+            args[4][0] = 0           # a row with no valid slot: zeros
+        if label.startswith("phi3-mini bf16"):
+            # an unmapped page in the middle of a full table gets no weight
+            args[3][1] = torch.randperm(p_total, generator=gen,
+                                        device="cuda")[:n_pages]
+            args[3][1, 1] = -1
+            args[4][1] = n_pages * page
+        out = pa.paged_attention(*args)
+        torch.cuda.synchronize()
+        want = ref.paged_attention_ref(*args)
+        diff = (out.float() - want.float()).abs()
+        err = float(diff.max())
+        if out.dtype != qd or out.shape != args[0].shape:
+            fail(f"paged_attention {label}: got {out.dtype}{tuple(out.shape)}")
+        if not bool(torch.isfinite(out).all()):
+            fail(f"paged_attention {label}: non-finite output")
+        if bool((diff > tol + tol * want.float().abs()).any()):
+            fail(f"paged_attention {label}: max abs err {err:.3g} > tol {tol}")
+        if label.startswith("phi3-mini f32q") and bool(out[0].any()):
+            fail("paged_attention: a zero-length row is not zeros")
+        print(f"[K1] {label}: max_abs_err={err:.3g} (tol {tol})", flush=True)
+        if record is not None:
+            continue
+        # The serve driver's case: time it and bound it.
+        q, k_pool, v_pool, pt, lengths = args
+        ms = device_ms("K1 kernel", lambda: pa.paged_attention(*args))
+        # ~20 small kernels a call: few calls, or they fill the launch queue
+        plain_ms = device_ms("K1 plain", lambda: ref.paged_attention_ref(*args),
+                         iters=10)
+        safe = pt.clamp(min=0).long()
+        kg = k_pool[safe].reshape(b, -1, hkv, d).transpose(1, 2).to(qd)
+        vg = v_pool[safe].reshape(b, -1, hkv, d).transpose(1, 2).to(qd)
+        pos = torch.arange(n_pages * page, device="cuda")
+        mask = (pos[None] < lengths[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        library_ms = device_ms("K1 SDPA", lambda: torch.nn.functional
+                           .scaled_dot_product_attention(q4, kg, vg,
+                                                         attn_mask=mask))
+        tokens = int(lengths.sum())
+        nbytes = (2 * q.numel() * q.element_size()
+                  + 2 * tokens * hkv * d * k_pool.element_size()
+                  + pt.numel() * 4 + lengths.numel() * 4)
+        flops = 4 * tokens * h * d
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = flops / F32_FLOPS * 1e3
+        record = dict(
+            name="paged_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_attention.cu",
+            replaces="src/repro/kernels/paged_attention.py:89",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(byte_ms, op_ms),
+            bound_by="bytes" if byte_ms >= op_ms else "operations",
+            library_ms=library_ms)
+        print(f"[K1] {label}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+              f"SDPA over gathered K/V {library_ms:.5f} ms; {nbytes} bytes, "
+              f"{flops} flops -> bound {record['bound_ms']:.6f} ms "
+              f"({record['bound_by']})", flush=True)
+    return record
+
+
+def phase_gc_compact():
+    """K2 against its plain version on the full-width pool; returns its
+    record."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import gc_compact, ops, ref
+    cfg = get_config("olmo-1b")
+    n_pages, page, bp = 256, 4, 4
+    gen = torch.Generator("cuda").manual_seed(SEED + 1)
+    pool = torch.randn((cfg.n_layers, 2, n_pages, page, cfg.kv_heads,
+                        cfg.head_dim), generator=gen,
+                       device="cuda").to(cfg.compute_dtype)
+    # Live pages as the serve driver leaves them: the runs of four live
+    # sequences of 3-12 pages, between the holes of finished ones.
+    rng = np.random.default_rng(SEED)
+    valid = np.zeros(n_pages, bool)
+    start = 0
+    for _ in range(4):
+        start += int(rng.integers(1, 9))
+        run = int(rng.integers(3, 13))
+        valid[start:start + run] = True
+        start += run
+    n_live = int(valid.sum())
+    src = pool.view(cfg.n_layers * 2, n_pages, page, -1)
+    # As PagedKVCache.compact does: gather the live pages, write them back
+    # over the front; the tail keeps its old pages.
+    dst = src.new_empty((src.shape[0], n_live) + src.shape[2:])
+    _, new_index, dmas = ops.compact_pages(src, valid, bp, out=dst)
+    new_pool = pool.clone()
+    new_pool.view(src.shape)[:, :n_live] = dst
+    torch.cuda.synchronize()
+    perm = np.arange(n_pages)
+    for old, new in enumerate(new_index):
+        if new >= 0:
+            perm[new] = old
+    want = pool[:, :, torch.from_numpy(perm).cuda()]
+    if not torch.equal(new_pool, want):
+        fail("gc_compact: compacted pool differs from the plain permutation")
+    err = float((new_pool.float() - want.float()).abs().max())
+    blocks, tail, _ = ops.compact_plan(valid, bp)
+    print(f"[K2] olmo-1b pool {tuple(pool.shape)} {pool.dtype}: {n_live} live "
+          f"pages, {dmas} copies per plane ({len(blocks)} blocks of {bp}, "
+          f"{len(tail)} single pages), bit-exact over {cfg.n_layers * 2} "
+          "planes and the kept tail", flush=True)
+
+    def kernel():
+        gc_compact.gather_page_blocks(src, blocks, bp, dst)
+        gc_compact.gather_page_blocks(src, tail, 1, dst,
+                                      dst_page=len(blocks) * bp)
+
+    order = np.concatenate([np.arange(b * bp, (b + 1) * bp) for b in blocks]
+                           + [tail]).astype(np.int64)
+    idx = torch.from_numpy(order).cuda()
+    ms = device_ms("K2 kernel", kernel)
+    plain_ms = device_ms("K2 plain", lambda: ref.gather_pages_ref(src, idx))
+    library_ms = device_ms("K2 index_select",
+                       lambda: torch.index_select(src, 1, idx))
+    nbytes = 2 * len(order) * src.shape[0] * page * src.shape[-1] \
+        * src.element_size() + (len(blocks) + len(tail)) * 4
+    record = dict(
+        name="gather_page_blocks", route="cuda",
+        source="src/repro_torch/kernels/csrc/gc_compact.cu",
+        replaces="src/repro/kernels/gc_compact.py:45",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=library_ms)
+    print(f"[K2] kernel ({int(len(blocks) > 0) + int(len(tail) > 0)} "
+          f"launches) {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+          f"index_select {library_ms:.5f} ms; {nbytes} bytes -> bound "
+          f"{record['bound_ms']:.6f} ms (bytes)", flush=True)
+    return record
+
+
+def run_serve(argv, expect):
+    from repro_torch.launch import serve
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    torch.cuda.synchronize()
+    line = buf.getvalue().strip()
+    print(f"[serve {' '.join(argv)}] {line} (main() wall "
+          f"{(time.perf_counter() - t) * 1e3:.3f} ms)", flush=True)
+    if rc != 0 or not line.startswith(expect):
+        fail(f"serve {argv}: expected '{expect}'")
+    return {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)\b(?![./])", line)}
+
+
+def phase_profile():
+    """Where one more full-width serve run spends device time.  Printed
+    only: a profiler that sees no device activity fails nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            serve.main(SERVE_FULL)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.device_time, n + 1)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    print(f"[profile] serve {' '.join(SERVE_FULL)}: main() wall "
+          f"{wall_ms:.3f} ms (params init included), device busy "
+          f"{busy_ms:.3f} ms in {sum(n for _, n in by_name.values())} "
+          "device activities", flush=True)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for i, (name, (us, n)) in enumerate(ranked):
+        if i < 12 or "paged_attention" in name or "gather_page" in name:
+            print(f"[profile]   {us / 1e3:9.3f} ms {n:5d}x {name[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import gc_compact, paged_attention
+
+    phase_build()
+    records = [phase_paged_attention(), phase_gc_compact()]
+    run_serve(SERVE_SMOKE, EXPECT_SMOKE)
+
+    # The main path: counts set to 0 just before, read just after.
+    paged_attention.launches = 0
+    gc_compact.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    counts = run_serve(SERVE_FULL, EXPECT_FULL)
+    k1, k2 = paged_attention.launches, gc_compact.launches
+    print(f"[serve] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"paged_attention={k1} gather_page_blocks={k2}", flush=True)
+    # With no allocation failure every decode step calls decode_fn once,
+    # and decode_fn attends once.
+    if k1 != counts["decode_steps"]:
+        fail(f"paged_attention launched {k1} times for "
+             f"{counts['decode_steps']} decode steps")
+    if not 0 < k2 <= 2 * counts["compaction_steps"]:
+        fail(f"gather_page_blocks launched {k2} times for "
+             f"{counts['compaction_steps']} compactions")
+    records[0]["launches"], records[1]["launches"] = k1, k2
+    phase_profile()
+
+    print(json.dumps({"kernels": records}))
+    print(sh("nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader").splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

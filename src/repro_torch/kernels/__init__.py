@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for Hopper (``csrc/``), their wrappers and
+their plain PyTorch versions:
+
+* paged_attention — decode attention against the paged KV pool;
+* gc_compact — run-coalesced page-block gather (GC compaction of the pool).
+
+``ops`` is the public entry; ``ref`` holds the plain versions.
+"""
+
+from . import ops, ref
+
+__all__ = ["ops", "ref"]

@@ -1,0 +1,98 @@
+"""Public entry points over the hand-written kernels.
+
+The tensors' device picks the path: a CUDA tensor launches the kernel (or
+raises), a CPU tensor runs the plain version in ``ref.py``.  There is no
+switch and no fall back.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from .gc_compact import gather_page_blocks
+from .paged_attention import paged_attention
+
+
+def decode_attention(q, k_pool, v_pool, page_table, lengths):
+    return paged_attention(q, k_pool, v_pool, page_table, lengths)
+
+
+# --------------------------------------------------------------------------
+# GC compaction planning (host side) + kernel dispatch
+# --------------------------------------------------------------------------
+
+def compact_plan(valid: np.ndarray, block_pages: int
+                 ) -> Tuple[np.ndarray, np.ndarray, List[Tuple[int, int]]]:
+    """Turn a page-validity bitmap into a run-coalesced copy plan.
+
+    Returns (block_src_ids, tail_page_ids, runs):
+    * ``block_src_ids`` — source *block* indices (block_pages-aligned runs
+      of live pages) to move with one large copy each;
+    * ``tail_page_ids`` — leftover live pages moved at single-page
+      granularity;
+    * ``runs`` — [(start, length)] of the detected live runs (for stats:
+      copy count = len(block_src_ids) + len(tail_page_ids) vs
+      valid.sum() without coalescing — the paper's Fig. 10 arithmetic).
+    """
+    valid = np.asarray(valid, bool)
+    runs: List[Tuple[int, int]] = []
+    i = 0
+    n = len(valid)
+    while i < n:
+        if not valid[i]:
+            i += 1
+            continue
+        j = i
+        while j + 1 < n and valid[j + 1]:
+            j += 1
+        runs.append((i, j - i + 1))
+        i = j + 1
+    blocks: List[int] = []
+    tail: List[int] = []
+    for start, length in runs:
+        # aligned full blocks inside the run
+        first_block = -(-start // block_pages)          # ceil
+        last_block = (start + length) // block_pages
+        for b in range(first_block, last_block):
+            blocks.append(b)
+        covered = set(range(first_block * block_pages,
+                            last_block * block_pages))
+        for p in range(start, start + length):
+            if p not in covered:
+                tail.append(p)
+    return (np.asarray(blocks, np.int32), np.asarray(tail, np.int32), runs)
+
+
+def compact_pages(pool, valid, block_pages: int = 4, out=None):
+    """Compact live pages to the front of a pool, run-coalesced.
+
+    pool: (..., P, page, D), every leading (plane) index moved with the same
+    plan.  Live pages land in plan order (aligned blocks, then single-page
+    tails) at the front of ``out``; pages of ``out`` past the live count are
+    left as they are (default ``out``: a zero pool, as the JAX package
+    returns).  Always issues the coalesced plan, whatever the device.
+
+    Returns (out, new_index, dma_count) where ``new_index[i]`` (a host int32
+    array) is the destination slot of old page i (−1 if dropped) and
+    ``dma_count`` is the number of block copies per plane.
+    """
+    valid_np = np.asarray(valid, bool)
+    blocks, tail, _ = compact_plan(valid_np, block_pages)
+    if out is None:
+        out = torch.zeros_like(pool)
+    if len(blocks):
+        gather_page_blocks(pool, blocks, block_pages, out)
+    if len(tail):
+        gather_page_blocks(pool, tail, 1, out,
+                           dst_page=len(blocks) * block_pages)
+    order = np.concatenate([
+        np.concatenate([np.arange(b * block_pages, (b + 1) * block_pages)
+                        for b in blocks]) if len(blocks) else
+        np.zeros((0,), np.int64),
+        tail.astype(np.int64)])
+    new_index = np.full(pool.shape[-3], -1, np.int32)
+    new_index[order] = np.arange(len(order), dtype=np.int32)
+    return out, new_index, len(blocks) + len(tail)

@@ -1,0 +1,64 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+They define each kernel's semantics: the CPU tests hold them against the
+JAX package, the kernel wrappers run them for CPU tensors, and
+``chip_smoke.py`` holds each kernel against them on the card.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+
+def paged_attention_ref(q, k_pool, v_pool, page_table, lengths):
+    """Decode attention against a paged KV pool.
+
+    q: (B, H, D) one query token per sequence;
+    k_pool/v_pool: (P, page_size, Hkv, D);
+    page_table: (B, max_pages) int32 (entries < 0 are unmapped);
+    lengths: (B,) valid token count per sequence.
+    Returns (B, H, D) in q's dtype.  A row with no valid slot
+    (lengths == 0) returns zeros.
+    """
+    b, h, d = q.shape
+    p_total, page_size, hkv, _ = k_pool.shape
+    max_pages = page_table.shape[1]
+    g = h // hkv
+    dtype = torch.promote_types(q.dtype, k_pool.dtype)
+    safe_table = page_table.clamp(min=0).long()
+    k = k_pool[safe_table].to(dtype)           # (B, max_pages, page, Hkv, D)
+    v = v_pool[safe_table].to(dtype)
+    k = k.reshape(b, max_pages * page_size, hkv, d)
+    v = v.reshape(b, max_pages * page_size, hkv, d)
+    pos = torch.arange(max_pages * page_size, device=q.device)
+    valid = (pos[None] < lengths[:, None]) & \
+        (page_table >= 0)[:, pos // page_size]
+    qg = q.to(dtype).reshape(b, hkv, g, d)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k) / math.sqrt(d)
+    valid = valid[:, None, None]
+    scores = scores.float().masked_fill(~valid, float("-inf"))
+    # A row with no valid slot would softmax over all -inf (NaN): give it
+    # finite scores here and zero weight below.
+    scores = scores.masked_fill(~valid.any(-1, keepdim=True), 0.0)
+    w = torch.softmax(scores, dim=-1).masked_fill(~valid, 0.0).to(q.dtype)
+    out = torch.einsum("bkgt,btkd->bkgd", w.to(dtype), v)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def gather_pages_ref(pool, idx):
+    """pool: (..., P, page, D); idx: (M,) → (..., M, page, D)."""
+    return pool[..., idx.long(), :, :]
+
+
+def compact_pages_ref(pool, valid) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reference GC compaction: keep pages where valid, packed densely at
+    the front (order-preserving).  Returns (new_pool, new_index_of_old)
+    where new_index_of_old[i] = destination of page i or -1 if dropped."""
+    valid = torch.as_tensor(valid, dtype=torch.bool, device=pool.device)
+    dst = torch.cumsum(valid.int(), 0, dtype=torch.int32) - 1
+    new_index = torch.where(valid, dst, -1)
+    order = torch.argsort((~valid).int(), stable=True)   # valid pages first
+    return pool[order], new_index

@@ -1,0 +1,169 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+The port's plain versions (what its wrappers run for CPU tensors) are held
+against the Pallas kernels in interpret mode and the JAX references, on the
+sweeps of tests/test_kernels.py.  Inputs are made with numpy and handed to
+both; bf16 inputs are rounded from the same f32 values on both sides
+(nearest even), so they are identical.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.gc_compact import gather_page_blocks as j_gather
+from repro.kernels.paged_attention import paged_attention as j_paged
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.gc_compact import gather_page_blocks
+from repro_torch.kernels.paged_attention import paged_attention
+
+JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def _both(x, dtype):
+    return jnp.asarray(x, JDT[dtype]), torch.from_numpy(x).to(dtype)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _paged_inputs(rng, b, h, hkv, d, ptotal, page, npages, q_dtype,
+                  kv_dtype):
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    kp = rng.normal(size=(ptotal, page, hkv, d)).astype(np.float32)
+    vp = rng.normal(size=(ptotal, page, hkv, d)).astype(np.float32)
+    pt = np.full((b, npages), -1, np.int32)
+    lengths = np.zeros((b,), np.int32)
+    for i in range(b):
+        used = int(rng.integers(1, npages + 1))
+        pt[i, :used] = rng.choice(ptotal, size=used, replace=False)
+        lengths[i] = int(rng.integers((used - 1) * page + 1,
+                                      used * page + 1))
+    qj, qt = _both(q, q_dtype)
+    kj, kt = _both(kp, kv_dtype)
+    vj, vt = _both(vp, kv_dtype)
+    return ((qj, kj, vj, jnp.asarray(pt), jnp.asarray(lengths)),
+            (qt, kt, vt, torch.from_numpy(pt), torch.from_numpy(lengths)))
+
+
+# tolerance: 2e-5 where q is f32 (every product is taken in f32 on both
+# sides, only the summation order differs); 3e-2 for bf16, whose scores and
+# weights are rounded to bf16 at different points.
+@pytest.mark.parametrize("b,h,hkv,d,ptotal,page,npages", [
+    (2, 4, 2, 64, 16, 8, 4), (3, 8, 8, 128, 32, 16, 6),
+    (1, 4, 1, 32, 8, 8, 8),
+])
+@pytest.mark.parametrize("q_dtype,kv_dtype,tol", [
+    (torch.float32, torch.float32, 2e-5),
+    (torch.bfloat16, torch.bfloat16, 3e-2),
+    (torch.float32, torch.bfloat16, 2e-5),
+])
+def test_paged_attention_matches_jax(b, h, hkv, d, ptotal, page, npages,
+                                     q_dtype, kv_dtype, tol):
+    rng = np.random.default_rng(1000 * b + d)
+    jargs, targs = _paged_inputs(rng, b, h, hkv, d, ptotal, page, npages,
+                                 q_dtype, kv_dtype)
+    out = paged_attention(*targs)
+    assert out.dtype == q_dtype and out.shape == (b, h, d)
+    for want in (j_paged(*jargs, interpret=True),
+                 jref.paged_attention_ref(*jargs)):
+        np.testing.assert_allclose(_np(out), _np(want), atol=tol, rtol=tol)
+
+
+def test_paged_attention_zero_length_rows_are_zeros():
+    rng = np.random.default_rng(7)
+    jargs, targs = _paged_inputs(rng, 3, 4, 2, 32, 16, 8, 4, torch.float32,
+                                 torch.float32)
+    targs[4][1] = 0
+    out = paged_attention(*targs)
+    assert torch.count_nonzero(out[1]) == 0
+    # the other rows are untouched by the empty one (2e-5, f32)
+    want = np.asarray(jref.paged_attention_ref(*jargs))
+    np.testing.assert_allclose(_np(out)[[0, 2]], want[[0, 2]], atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_wrappers_refuse_tensors_off_cpu_and_cuda():
+    # Only a CPU tensor runs the plain version; anything else must reach
+    # the kernel or raise.
+    rng = np.random.default_rng(3)
+    _, targs = _paged_inputs(rng, 2, 4, 2, 64, 16, 8, 4, torch.float32,
+                             torch.float32)
+    with pytest.raises(ValueError):
+        paged_attention(*(t.to("meta") for t in targs))
+    pool = torch.zeros((2, 8, 4, 16), device="meta")
+    with pytest.raises(ValueError):
+        gather_page_blocks(pool, np.array([0, 1], np.int32), 2,
+                           torch.zeros_like(pool))
+
+
+@pytest.mark.parametrize("seed,n,block_pages,density", [
+    (0, 64, 4, 0.6), (1, 256, 4, 0.3), (2, 48, 8, 0.8), (3, 33, 1, 0.5),
+    (4, 128, 2, 0.95), (5, 16, 4, 0.0),
+])
+def test_compact_plan_identical(seed, n, block_pages, density):
+    valid = np.random.default_rng(seed).random(n) < density
+    jb, jt, jr = jops.compact_plan(valid, block_pages)
+    tb, tt, tr = ops.compact_plan(valid, block_pages)
+    np.testing.assert_array_equal(tb, jb)
+    np.testing.assert_array_equal(tt, jt)
+    assert tb.dtype == jb.dtype and tt.dtype == jt.dtype
+    assert tr == jr
+
+
+@pytest.mark.parametrize("ptotal,page,d,blockp", [
+    (32, 8, 16, 4), (64, 4, 8, 8), (16, 8, 32, 4), (48, 8, 16, 1),
+])
+def test_compact_pages_matches_jax_kernel_path(ptotal, page, d, blockp):
+    rng = np.random.default_rng(ptotal + blockp)
+    pool = rng.normal(size=(ptotal, page, d)).astype(np.float32)
+    valid = rng.random(ptotal) < 0.6
+    jpacked, jnew, jdmas = jops.compact_pages(
+        jnp.asarray(pool), valid, block_pages=blockp, use_pallas=True,
+        interpret=True)
+    packed, new_index, dmas = ops.compact_pages(
+        torch.from_numpy(pool), valid, block_pages=blockp)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jpacked))
+    np.testing.assert_array_equal(new_index, np.asarray(jnew))
+    assert dmas == jdmas
+
+
+def test_compact_pages_ref_matches_jax():
+    rng = np.random.default_rng(11)
+    pool = rng.normal(size=(24, 4, 8)).astype(np.float32)
+    valid = rng.random(24) < 0.5
+    jpacked, jnew = jref.compact_pages_ref(jnp.asarray(pool),
+                                           jnp.asarray(valid))
+    packed, new_index = ref.compact_pages_ref(torch.from_numpy(pool), valid)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jpacked))
+    np.testing.assert_array_equal(new_index.numpy(), np.asarray(jnew))
+
+
+@pytest.mark.parametrize("block_pages,dst_page", [(1, 0), (4, 0), (2, 6)])
+def test_gather_page_blocks_every_plane(block_pages, dst_page):
+    # Each plane of the port's multi-plane gather equals the Pallas kernel
+    # on that plane; pages of `out` outside the destination stay as they
+    # were.
+    rng = np.random.default_rng(block_pages)
+    planes, ptotal, page, d = 3, 16, 4, 8
+    pool = rng.normal(size=(planes, ptotal, page, d)).astype(np.float32)
+    ids = rng.choice(ptotal // block_pages, size=3, replace=False) \
+        .astype(np.int32)
+    out = torch.full((planes, ptotal, page, d), 7.0)
+    gather_page_blocks(torch.from_numpy(pool), ids, block_pages, out,
+                       dst_page=dst_page)
+    n = len(ids) * block_pages
+    for i in range(planes):
+        want = j_gather(jnp.asarray(pool[i]), jnp.asarray(ids),
+                        block_pages=block_pages, interpret=True)
+        np.testing.assert_array_equal(
+            out[i, dst_page:dst_page + n].numpy(), np.asarray(want))
+    kept = torch.ones(ptotal, dtype=torch.bool)
+    kept[dst_page:dst_page + n] = False
+    assert bool((out[:, kept] == 7.0).all())
