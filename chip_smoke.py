@@ -8,11 +8,19 @@ Phases, in order; any failure exits non-zero:
 1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
    into ``build/kernels/``; print the toolchain and the card.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   serve driver's full-width olmo-1b shapes and at head_dim 96 (phi3-mini),
-   and time the kernel, the plain version and a library yardstick.
+   shapes its paths give it (the serve driver's and the prefills' full
+   widths, head_dim 96 for phi3-mini, a ragged f32 case for K3), and time
+   the kernel, the plain version and a library yardstick.
 3. Run the serve driver at full olmo-1b width (16 layers, d_model 2048) and
-   check its counts and that it went through both kernels.
-4. Profile one more such run and print where its device time goes.
+   check its counts and that it went through K1 and K2.
+4. Prefill olmo-1b at full width (batch 2, seq 4096, bf16) through
+   ``build_prefill_step``, with K3 in every layer; check the chunked (K3)
+   forward against the naive one in f32, and dense-cache decode
+   (``build_decode_step``) against the chunked forward in f32.
+5. Prefill starcoder2-3b at full width (30 layers, 24 heads over 2 KV
+   heads), the GQA case of K3.
+6. Profile one olmo-1b prefill and one serve run and print where their
+   device time goes.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  There is no CPU fallback: with
@@ -22,6 +30,7 @@ no card the script exits non-zero before doing anything.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -39,13 +48,16 @@ import torch  # noqa: E402
 SERVE_FULL = ["--arch", "olmo-1b", "--full"]
 EXPECT_FULL = ("completed=24/24 decode_steps=62 compaction_steps=12 "
                "compaction_dmas=2880 alloc_failures=0")
+PREFILL = (2, 4096)            # olmo-1b prefill (batch, seq)
 SERVE_SMOKE = ["--arch", "olmo-1b"]
 EXPECT_SMOKE = ("completed=24/24 decode_steps=62 compaction_steps=12 "
                 "compaction_dmas=360 alloc_failures=0")
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 outside the
-# tensor cores.  Bounds are stated against them.
+# tensor cores, dense bf16 on the tensor cores.  Bounds are stated against
+# them.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 SEED = 0
 
 
@@ -280,6 +292,226 @@ def phase_gc_compact():
     return record
 
 
+def phase_flash_attention():
+    """K3 against its plain version at the prefills' shapes; returns the
+    record of the olmo-1b prefill case."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator("cuda").manual_seed(SEED + 2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # Tolerance: 2e-3 for f32 (the plain version's einsums and the kernel
+    # sum in different orders); 2e-2 for bf16 (the plain version rounds the
+    # scores and the softmax weights to bf16, the kernel keeps them in f32).
+    # (label, B, S, H, Hkv, D, dtype, causal, tol)
+    cases = [
+        ("olmo-1b prefill", *PREFILL, 16, 16, 128, bf16, True, 2e-2),
+        ("starcoder2-3b prefill", 1, 2048, 24, 2, 128, bf16, True, 2e-2),
+        ("phi3-mini D=96", 1, 2048, 32, 32, 96, bf16, True, 2e-2),
+        ("ragged f32 non-causal", 1, 1000, 8, 2, 64, f32, False, 2e-3),
+    ]
+    record = None
+    for label, b, s, h, hkv, d, dt, causal, tol in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for shape in [(b, s, h, d), (b, s, hkv, d),
+                                 (b, s, hkv, d)])
+        out = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        diff = (out.float() - want.float()).abs()
+        err = float(diff.max())
+        if out.dtype != dt or out.shape != q.shape:
+            fail(f"flash_attention {label}: got {out.dtype}{tuple(out.shape)}")
+        if not bool(torch.isfinite(out).all()):
+            fail(f"flash_attention {label}: non-finite output")
+        if bool((diff > tol + tol * want.float().abs()).any()):
+            fail(f"flash_attention {label}: max abs err {err:.3g} > tol {tol}")
+        print(f"[K3] {label} (B,S,H,Hkv,D)=({b},{s},{h},{hkv},{d}) {dt} "
+              f"causal={causal}: max_abs_err={err:.3g} (tol {tol})",
+              flush=True)
+        del want, diff
+        if record is not None:
+            continue
+        ms = device_ms("K3 kernel", lambda: fa.flash_attention(q, k, v),
+                       iters=10)
+        plain_ms = device_ms("K3 plain",
+                             lambda: ref.flash_attention_ref(q, k, v),
+                             iters=3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = device_ms("K3 SDPA", lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=h != hkv), iters=10)
+        # q, k and v read once, the output (q's size) written once
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * b * h * d * s * (s + 1) // 2
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = flops / (BF16_FLOPS if dt == bf16 else F32_FLOPS) * 1e3
+        record = dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:78",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(byte_ms, op_ms),
+            bound_by="bytes" if byte_ms >= op_ms else "operations",
+            library_ms=library_ms)
+        print(f"[K3] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"SDPA {library_ms:.4f} ms; {nbytes} bytes, {flops} flops "
+              f"-> bound {record['bound_ms']:.6f} ms ({record['bound_by']}); "
+              f"kernel at {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    return record
+
+
+def reset_counts():
+    from repro_torch.kernels import flash_attention, gc_compact, paged_attention
+    flash_attention.launches = 0
+    paged_attention.launches = 0
+    gc_compact.launches = 0
+
+
+def full_params(cfg):
+    from repro_torch.models import transformer
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    return transformer.init(cfg, gen, "cuda")
+
+
+def phase_prefill_olmo(params):
+    """The prefill path at full olmo-1b width; returns K3's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import build_prefill_step, synthetic_batch
+    cfg = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked")
+    b, s = PREFILL
+    step, _ = build_prefill_step(cfg, b, s)
+    batch = synthetic_batch(cfg, 0, b, s)
+    batch.pop("targets")
+    step(params, batch)                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    # The path: counts set to 0 just before, read just after.
+    reset_counts()
+    t = time.perf_counter()
+    e0.record()
+    logits = step(params, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    launches = fa.launches
+    finite = bool(torch.isfinite(logits).all())
+    print(f"[prefill olmo-1b] batch {b} seq {s} bf16: logits "
+          f"{tuple(logits.shape)} {logits.dtype} finite={finite}; "
+          f"flash_attention launches={launches}; one call "
+          f"{e0.elapsed_time(e1):.3f} ms by CUDA events ({wall:.3f} ms host "
+          f"wall); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if tuple(logits.shape) != (b, cfg.vocab) or not finite:
+        fail("prefill olmo-1b: logits of the wrong shape or not finite")
+    if launches != cfg.n_layers:
+        fail(f"prefill olmo-1b: flash_attention launched {launches} times "
+             f"for {cfg.n_layers} layers")
+    return launches
+
+
+def phase_prefill_f32_check(params):
+    """K3 inside the model: the chunked forward (K3, f32) against the naive
+    one (plain PyTorch, f32) at full olmo-1b width; then dense-cache decode
+    against the chunked forward.  Both at 2e-3: f32 throughout, sums in
+    different orders, through 16 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.train import build_decode_step, synthetic_batch
+    tol = 2e-3
+    base = dataclasses.replace(get_config("olmo-1b"),
+                               compute_dtype=torch.float32)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_batch(base, 1, 1, 1024).items()}
+    logits = {}
+    with torch.no_grad():
+        for impl in ["naive", "chunked"]:
+            fa.launches = 0
+            logits[impl] = transformer.forward(
+                params, batch, dataclasses.replace(base, attn_impl=impl))
+            torch.cuda.synchronize()
+            if fa.launches != (base.n_layers if impl == "chunked" else 0):
+                fail(f"prefill f32 check: {fa.launches} flash_attention "
+                     f"launches on the {impl} path")
+    diff = (logits["chunked"] - logits["naive"]).abs()
+    err = float(diff.max())
+    bad = bool((diff > tol + tol * logits["naive"].abs()).any())
+    print(f"[prefill f32 check] olmo-1b batch 1 seq 1024 f32: chunked (K3, "
+          f"{base.n_layers} launches) vs naive logits max_abs_err={err:.3g} "
+          f"(tol {tol}, |logits| <= {float(logits['naive'].abs().max()):.3g})",
+          flush=True)
+    if bad or not bool(torch.isfinite(logits["chunked"]).all()):
+        fail(f"prefill f32 check: chunked and naive differ by {err:.3g}")
+
+    n = 32
+    cfg = dataclasses.replace(base, attn_impl="chunked")
+    step, _ = build_decode_step(cfg, 1, 64)
+    cache = transformer.init_cache(cfg, 1, 64)
+    tokens = batch["tokens"][:, :n]
+    outs = []
+    for i in range(n):
+        if i == 1:                # the first step warms up; time the rest
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        lg, cache = step(params, cache, np.array([i], np.int32),
+                         tokens[:, i:i + 1])
+        outs.append(lg[:, 0])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    got = torch.stack(outs, 1)
+    with torch.no_grad():
+        want = transformer.forward(
+            params, {"tokens": tokens, "positions": batch["positions"][:, :n]},
+            cfg)
+    diff = (got - want).abs()
+    err = float(diff.max())
+    print(f"[decode olmo-1b] f32 batch 1, {n} tokens one at a time through "
+          f"build_decode_step (cache max_seq 64) vs the chunked forward: "
+          f"max_abs_err={err:.3g} (tol {tol}); {wall / (n - 1):.3f} ms a "
+          "step over steps 2-32 (host wall)", flush=True)
+    if bool((diff > tol + tol * want.abs()).any()) \
+            or not bool(torch.isfinite(got).all()):
+        fail(f"decode olmo-1b: decode and forward differ by {err:.3g}")
+
+
+def phase_prefill_starcoder():
+    """GQA at full width: starcoder2-3b prefill (24 heads over 2 KV
+    heads); returns K3's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import build_prefill_step, synthetic_batch
+    cfg = dataclasses.replace(get_config("starcoder2-3b"),
+                              attn_impl="chunked")
+    params = full_params(cfg)
+    step, _ = build_prefill_step(cfg, 1, 2048)
+    batch = synthetic_batch(cfg, 0, 1, 2048)
+    batch.pop("targets")
+    step(params, batch)                        # warm-up
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reset_counts()
+    e0.record()
+    logits = step(params, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    launches = fa.launches
+    finite = bool(torch.isfinite(logits).all())
+    print(f"[prefill starcoder2-3b] batch 1 seq 2048 bf16, "
+          f"{cfg.n_heads} heads over {cfg.kv_heads} KV heads: logits "
+          f"{tuple(logits.shape)} finite={finite}; flash_attention "
+          f"launches={launches}; one call {e0.elapsed_time(e1):.3f} ms by "
+          "CUDA events", flush=True)
+    if tuple(logits.shape) != (1, cfg.vocab) or not finite:
+        fail("prefill starcoder2-3b: logits of the wrong shape or not finite")
+    if launches != cfg.n_layers:
+        fail(f"prefill starcoder2-3b: flash_attention launched {launches} "
+             f"times for {cfg.n_layers} layers")
+    return launches
+
+
 def run_serve(argv, expect):
     from repro_torch.launch import serve
     buf = io.StringIO()
@@ -295,13 +527,88 @@ def run_serve(argv, expect):
     return {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)\b(?![./])", line)}
 
 
-def phase_profile():
-    """Where one more full-width serve run spends device time.  Printed
-    only: a profiler that sees no device activity fails nothing."""
+def device_time_by_name(prof):
     from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.device_time, n + 1)
+    return by_name
+
+
+def print_ranked(by_name, keep):
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for i, (name, (us, n)) in enumerate(ranked):
+        if i < 12 or any(k in name for k in keep):
+            print(f"[profile]   {us / 1e3:9.3f} ms {n:5d}x {name[:90]}")
+
+
+PRODUCTS = ("aten::einsum", "aten::matmul")
+
+
+def product_part(e, vocab):
+    """Which of the model's products a top-level einsum or matmul is: the
+    FFN uses ``@`` (matmul), attention projections and the unembedding
+    ``einsum``, whose inner bmm/mm has the vocabulary as its last dim only
+    for the unembedding."""
+    if e.name not in PRODUCTS or (e.cpu_parent is not None
+                                  and e.cpu_parent.name in PRODUCTS):
+        return None
+    if e.name == "aten::matmul":
+        return "FFN products"
+    stack = [e]
+    while stack:
+        x = stack.pop()
+        if x.name in ("aten::bmm", "aten::mm") and len(x.input_shapes) > 1:
+            if x.input_shapes[1][-1] == vocab:
+                return "unembedding"
+            return "attention projections (q, k, v, o)"
+        stack.extend(x.cpu_children)
+    return None
+
+
+def phase_profile(params):
+    """Where one full-width olmo-1b prefill and one full-width serve run
+    spend device time.  Printed only: a profiler that sees no device
+    activity fails nothing."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch.train import build_prefill_step, synthetic_batch
+    cfg = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked")
+    step, _ = build_prefill_step(cfg, *PREFILL)
+    batch = synthetic_batch(cfg, 0, *PREFILL)
+    batch.pop("targets")
+    step(params, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = device_time_by_name(prof)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    parts = {}
+    for e in prof.events():
+        part = product_part(e, cfg.vocab)
+        if part:
+            parts[part] = parts.get(part, 0.0) + e.device_time_total / 1e3
+    parts["flash_attention (K3)"] = sum(
+        us for name, (us, _) in by_name.items()
+        if "flash_attention" in name) / 1e3
+    parts["everything else"] = busy_ms - sum(parts.values())
+    print(f"[profile] prefill olmo-1b batch {PREFILL[0]} seq {PREFILL[1]} "
+          f"bf16: one call, wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * (1 - busy_ms / wall_ms):.1f}% idle) in "
+          f"{sum(n for _, n in by_name.values())} device activities",
+          flush=True)
+    for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  {part}")
+    print_ranked(by_name, ["flash_attention"])
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -309,20 +616,13 @@ def phase_profile():
             serve.main(SERVE_FULL)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.device_time, n + 1)
+    by_name = device_time_by_name(prof)
     busy_ms = sum(us for us, _ in by_name.values()) / 1e3
     print(f"[profile] serve {' '.join(SERVE_FULL)}: main() wall "
           f"{wall_ms:.3f} ms (params init included), device busy "
           f"{busy_ms:.3f} ms in {sum(n for _, n in by_name.values())} "
           "device activities", flush=True)
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    for i, (name, (us, n)) in enumerate(ranked):
-        if i < 12 or "paged_attention" in name or "gather_page" in name:
-            print(f"[profile]   {us / 1e3:9.3f} ms {n:5d}x {name[:90]}")
+    print_ranked(by_name, ["paged_attention", "gather_page"])
 
 
 def main() -> int:
@@ -330,15 +630,16 @@ def main() -> int:
         fail("no CUDA device is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
     from repro_torch.kernels import gc_compact, paged_attention
 
     phase_build()
-    records = [phase_paged_attention(), phase_gc_compact()]
+    records = [phase_paged_attention(), phase_gc_compact(),
+               phase_flash_attention()]
     run_serve(SERVE_SMOKE, EXPECT_SMOKE)
 
-    # The main path: counts set to 0 just before, read just after.
-    paged_attention.launches = 0
-    gc_compact.launches = 0
+    # The serve path: counts set to 0 just before, read just after.
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     counts = run_serve(SERVE_FULL, EXPECT_FULL)
     k1, k2 = paged_attention.launches, gc_compact.launches
@@ -354,7 +655,16 @@ def main() -> int:
         fail(f"gather_page_blocks launched {k2} times for "
              f"{counts['compaction_steps']} compactions")
     records[0]["launches"], records[1]["launches"] = k1, k2
-    phase_profile()
+
+    # The prefill path (its counts are set and read inside), then K3 in the
+    # model at f32, decode, and GQA at full width.
+    params = full_params(get_config("olmo-1b"))
+    records[2]["launches"] = phase_prefill_olmo(params)
+    phase_prefill_f32_check(params)
+    phase_profile(params)
+    del params                    # 4.7 GB: make room for starcoder2-3b's 12
+    torch.cuda.empty_cache()
+    phase_prefill_starcoder()
 
     print(json.dumps({"kernels": records}))
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), their wrappers and
 their plain PyTorch versions:
 
+* flash_attention — causal or full GQA attention over a whole sequence
+  (prefill);
 * paged_attention — decode attention against the paged KV pool;
 * gc_compact — run-coalesced page-block gather (GC compaction of the pool).
 

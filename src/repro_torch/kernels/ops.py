@@ -12,8 +12,14 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from .flash_attention import flash_attention
 from .gc_compact import gather_page_blocks
 from .paged_attention import paged_attention
+
+
+def attention(q, k, v, causal: bool = True):
+    """q: (B, S, H, D); k/v: (B, S, Hkv, D) → (B, S, H, D)."""
+    return flash_attention(q, k, v, causal=causal)
 
 
 def decode_attention(q, k_pool, v_pool, page_table, lengths):

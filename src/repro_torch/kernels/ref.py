@@ -13,6 +13,24 @@ from typing import Tuple
 import torch
 
 
+def flash_attention_ref(q, k, v, causal: bool = True):
+    """q: (B, S, H, D); k/v: (B, S, Hkv, D) with H % Hkv == 0.
+    Returns (B, S, H, D) in q's dtype; query head h reads KV head
+    h // (H // Hkv).  The softmax weights are rounded to q's dtype before
+    the product with V, as the JAX reference does."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, s, hkv, g, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k) / math.sqrt(d)
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(b, s, h, d)
+
+
 def paged_attention_ref(q, k_pool, v_pool, page_table, lengths):
     """Decode attention against a paged KV pool.
 

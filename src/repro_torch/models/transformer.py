@@ -1,18 +1,23 @@
-"""Decoder-only transformer LM: parameter declaration and init.
+"""Decoder-only (and encoder-only) transformer LM: params, forward, loss and
+dense-cache decode.
 
 Layers are stacked (a leading ``n_layers`` axis on every layer parameter),
-as in the JAX package.  ``forward`` and ``decode_step`` come with a later
-slice.
+as in the JAX package, and the forward pass walks them with a Python loop.
+``cfg.remat`` and ``cfg.scan_layers`` have no meaning here: the loop is
+eager and nothing is rematerialised.  Covers the dense family; the frame
+frontend (audio, VLM) and M-RoPE come with their slices.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
+from ..device import resolve_device
 from .config import ModelConfig
-from .modules import ParamSpec, attention_specs, ffn_specs, materialize
+from .modules import (ParamSpec, _einsum, apply_rope, attention_specs, ffn,
+                      ffn_specs, gqa_attention, materialize, norm)
 
 Params = Dict[str, Any]
 
@@ -49,3 +54,96 @@ def specs(cfg: ModelConfig) -> Params:
 def init(cfg: ModelConfig, generator: torch.Generator,
          device="cuda") -> Params:
     return materialize(specs(cfg), generator, cfg.param_dtype, device)
+
+
+def _layer_params(layers: Params, i: int) -> Params:
+    return {k: _layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+def _layer(cfg: ModelConfig, x, lp: Params, positions, causal: bool):
+    h, _ = gqa_attention(lp["attn"], norm(x, lp["attn_norm"], cfg),
+                         positions, cfg, causal=causal)
+    x = x + h
+    return x + ffn(lp["ffn"], norm(x, lp["ffn_norm"], cfg), cfg)
+
+
+def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict):
+    if cfg.frontend != "none":
+        raise NotImplementedError("frame/patch frontends are not yet ported")
+    # Rows first, then the cast: the same values as casting the table.
+    return params["embed"][batch["tokens"]].to(cfg.compute_dtype)
+
+
+def _unembed(params: Params, x, cfg: ModelConfig):
+    x = norm(x, params["final_norm"], cfg)
+    return torch.einsum("bsd,dv->bsv", x,
+                        params["unembed"].to(cfg.compute_dtype))
+
+
+def forward(params: Params, batch: Dict, cfg: ModelConfig):
+    """batch: tokens (B,S), positions (B,S), as tensors on the params'
+    device.  Returns logits (B,S,V) in the compute dtype."""
+    x = _embed_inputs(params, cfg, batch)
+    positions = batch["positions"]
+    for i in range(cfg.n_layers):
+        x = _layer(cfg, x, _layer_params(params["layers"], i), positions,
+                   cfg.causal)
+    return _unembed(params, x, cfg)
+
+
+def loss_fn(params: Params, batch: Dict, cfg: ModelConfig):
+    logits = forward(params, batch, cfg).float()
+    targets = batch["targets"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    # masked targets (< 0) pick any column: their term is multiplied by 0
+    gold = logits.gather(-1, targets.clamp(min=0)[..., None]).squeeze(-1)
+    mask = (targets >= 0).float()
+    return ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+# --------------------------------------------------------------------------
+# Decode with a dense KV cache (the dry-run serve_step contract).
+# The paged-pool cache in repro_torch.serving implements the same math
+# against gathered pages (serving/kvcache.py + kernels/paged_attention).
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
+    dtype = cfg.kv_cache_dtype or cfg.compute_dtype
+    shape = (cfg.n_layers, 2, batch, max_seq, cfg.kv_heads, cfg.head_dim)
+    return torch.zeros(shape, dtype=dtype, device=resolve_device(device))
+
+
+def decode_step(params: Params, cache, lengths, tokens, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token decode.  cache: (L,2,B,S,kvH,hd); lengths (B,) current
+    sequence lengths; tokens (B,1).  Returns (logits, cache).  The token's
+    K/V rows are written into ``cache`` in place (the JAX package returns a
+    new cache), so a step costs no copy of the cache."""
+    if cfg.rope == "mrope":
+        raise NotImplementedError("M-RoPE is not yet ported")
+    b = tokens.shape[0]
+    max_seq = cache.shape[3]
+    cdt = cfg.compute_dtype
+    rows = torch.arange(b, device=tokens.device)
+    x = params["embed"][tokens].to(cdt)                        # (B,1,D)
+    positions = lengths[:, None]                               # (B,1)
+    kv_pos = torch.arange(max_seq, device=tokens.device)[None, :]
+    kv_pos = torch.where(kv_pos <= lengths[:, None], kv_pos, -1)  # (B,S)
+    for i in range(cfg.n_layers):
+        lp = _layer_params(params["layers"], i)
+        xn = norm(x, lp["attn_norm"], cfg)
+        # new k/v for this token: f32 weights against the compute-dtype
+        # activations, promoted to f32 as JAX promotes them
+        k_new = _einsum("bsd,dhk->bshk", xn, lp["attn"]["wk"]).to(cdt)
+        v_new = _einsum("bsd,dhk->bshk", xn, lp["attn"]["wv"]).to(cdt)
+        if cfg.rope == "rope":
+            k_new = apply_rope(k_new, positions, cfg.rope_theta)
+        cache[i, 0, rows, lengths] = k_new[:, 0].to(cache.dtype)
+        cache[i, 1, rows, lengths] = v_new[:, 0].to(cache.dtype)
+        h, _ = gqa_attention(lp["attn"], xn, positions, cfg, causal=False,
+                             kv_override=(cache[i, 0], cache[i, 1]),
+                             kv_positions=kv_pos)
+        x = x + h
+        x = x + ffn(lp["ffn"], norm(x, lp["ffn_norm"], cfg), cfg)
+    return _unembed(params, x, cfg), cache

@@ -5,12 +5,14 @@ Skipped on a machine with no card.  On one:
 """
 
 import contextlib
+import dataclasses
 import io
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gc_compact, ops, ref
 from repro_torch.kernels import paged_attention as pa
 
@@ -101,3 +103,77 @@ def test_serve_driver_runs_through_both_kernels(cuda):
         "compaction_dmas=360 alloc_failures=0")
     assert pa.launches == 62
     assert 0 < gc_compact.launches <= 24
+
+
+# tolerance: 2e-3 for f32 (the plain version's einsums and the kernel sum in
+# different orders); 2e-2 for bf16 (the plain version rounds the scores and
+# the softmax weights to bf16, the kernel keeps both in f32).
+@pytest.mark.parametrize("b,s,h,hkv,d", [
+    (2, 256, 4, 2, 64), (1, 128, 8, 8, 128), (2, 512, 4, 1, 32),
+    (1, 256, 6, 3, 64), (1, 1000, 8, 2, 64), (2, 77, 12, 1, 96),
+    (1, 1, 4, 4, 128), (1, 300, 24, 2, 128), (1, 130, 4, 4, 256),
+    (1, 65, 2, 1, 40),
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(cuda, b, s, h, hkv, d, dtype,
+                                              tol, causal):
+    gen = torch.Generator(cuda).manual_seed(b * s + d)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in [(b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)])
+    before = fa.launches
+    out = ops.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == (b, s, h, d)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_refuses_what_it_cannot_take(cuda):
+    q = torch.randn((1, 64, 4, 64), device=cuda)
+    k = torch.randn((1, 64, 2, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q.clone().requires_grad_(), k, k)
+    with torch.no_grad():     # no graph to cut off: runs
+        fa.flash_attention(q.clone().requires_grad_(), k, k)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, k)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[:, :, :, :60].contiguous(),
+                           k[:, :, :, :60].contiguous())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q[..., :60].contiguous(), k[..., :60].contiguous(),
+                           k[..., :60].contiguous())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[:, :, :1].expand(1, 64, 3, 64).contiguous(),
+                           k[:, :, :1].expand(1, 64, 3, 64).contiguous())
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "starcoder2-3b"])
+def test_chunked_forward_matches_naive_through_the_kernel(cuda, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.train import build_prefill_step, synthetic_batch
+    base = dataclasses.replace(get_config(arch, smoke=True),
+                               compute_dtype=torch.float32, n_layers=3)
+    params = transformer.init(base, torch.Generator(cuda).manual_seed(0),
+                              cuda)
+    batch = synthetic_batch(base, 0, 2, 200)
+    batch.pop("targets")
+    logits = {}
+    for impl in ["naive", "chunked"]:
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        step, _ = build_prefill_step(cfg, 2, 200)
+        fa.launches = 0
+        logits[impl] = step(params, batch)
+        torch.cuda.synchronize()
+        assert fa.launches == (cfg.n_layers if impl == "chunked" else 0)
+    # f32 on both paths, sums in different orders: 1e-3
+    torch.testing.assert_close(logits["chunked"], logits["naive"],
+                               atol=1e-3, rtol=1e-3)

@@ -17,6 +17,7 @@ from repro.kernels import ref as jref
 from repro.kernels.gc_compact import gather_page_blocks as j_gather
 from repro.kernels.paged_attention import paged_attention as j_paged
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gc_compact import gather_page_blocks
 from repro_torch.kernels.paged_attention import paged_attention
 
@@ -89,6 +90,31 @@ def test_paged_attention_zero_length_rows_are_zeros():
                                rtol=2e-5)
 
 
+# The sweep of tests/test_kernels.py::test_flash_attention, held against the
+# JAX reference (the Pallas kernel cannot run on the installed JAX, ROADMAP
+# F1).  Tolerance as there: 2e-5 for f32 (only the order of the sums
+# differs), 2e-2 for bf16 (scores and weights are rounded to bf16 on both
+# sides, by different libraries).
+@pytest.mark.parametrize("b,s,h,hkv,d", [
+    (2, 256, 4, 2, 64), (1, 128, 8, 8, 128), (2, 512, 4, 1, 32),
+    (1, 256, 6, 3, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ref_matches_jax(b, s, h, hkv, d, dtype, causal):
+    rng = np.random.default_rng(s + h + d)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _both(rng.normal(size=shape).astype(np.float32), dtype)
+        for shape in [(b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)])
+    want = jref.flash_attention_ref(qj, kj, vj, causal=causal)
+    got = ref.flash_attention_ref(qt, kt, vt, causal=causal)
+    # what the model calls: on CPU tensors, the plain version itself
+    assert torch.equal(ops.attention(qt, kt, vt, causal=causal), got)
+    assert got.dtype == dtype and got.shape == (b, s, h, d)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
 def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     # Only a CPU tensor runs the plain version; anything else must reach
     # the kernel or raise.
@@ -101,6 +127,9 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     with pytest.raises(ValueError):
         gather_page_blocks(pool, np.array([0, 1], np.int32), 2,
                            torch.zeros_like(pool))
+    q = torch.zeros((1, 8, 4, 16), device="meta")
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)
 
 
 @pytest.mark.parametrize("seed,n,block_pages,density", [

@@ -21,6 +21,7 @@ from repro_torch.launch import serve
 from repro_torch.models import transformer
 from repro_torch.models.modules import ParamSpec, materialize
 from repro_torch.serving import PagedCacheConfig, PagedKVCache
+from repro_torch.train import build_decode_step, build_prefill_step
 from repro_torch.weights import params_from_numpy
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -46,7 +47,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(res.stdout) >= 16      # every module was imported
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "phi3-mini-3.8b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "phi3-mini-3.8b",
+                                  "starcoder2-3b", "phi3-medium-14b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_jax(arch, smoke):
     want, got = j_get_config(arch, smoke=smoke), get_config(arch, smoke=smoke)
@@ -114,6 +116,12 @@ ENTRY_POINTS = {
     "PagedKVCache": lambda: PagedKVCache(
         get_config("olmo-1b", smoke=True), PagedCacheConfig(n_pages=8)),
     "serve.main": lambda: serve.main(["--arch", "olmo-1b"]),
+    "init_cache": lambda: transformer.init_cache(
+        get_config("olmo-1b", smoke=True), 1, 8),
+    "build_prefill_step": lambda: build_prefill_step(
+        get_config("olmo-1b", smoke=True), 1, 8),
+    "build_decode_step": lambda: build_decode_step(
+        get_config("olmo-1b", smoke=True), 1, 8),
 }
 
 
