@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero:
    into ``build/kernels/``; print the toolchain and the card.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes its paths give it (the serve driver's and the prefills' full
-   widths, head_dim 96 for phi3-mini, a ragged f32 case for K3), and time
-   the kernel, the plain version and a library yardstick.
+   widths, head_dim 96 for phi3-mini, a ragged f32 case for K3, mamba2's
+   SMOKE widths and an initial state for K4), and time the kernel, the plain
+   version and a library yardstick where one exists.
 3. Run the serve driver at full olmo-1b width (16 layers, d_model 2048) and
    check its counts and that it went through K1 and K2.
 4. Prefill olmo-1b at full width (batch 2, seq 4096, bf16) through
@@ -21,6 +22,10 @@ Phases, in order; any failure exits non-zero:
    heads), the GQA case of K3.
 6. Profile one olmo-1b prefill and one serve run and print where their
    device time goes.
+7. Prefill mamba2-370m at full width (48 layers, d_model 1024, batch 2, seq
+   4096, bf16) with the SSD-scan kernel (K4) in every layer; check O(1)-state
+   decode against the K4 forward in f32 across a chunk boundary; profile one
+   prefill by part.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  There is no CPU fallback: with
@@ -48,7 +53,7 @@ import torch  # noqa: E402
 SERVE_FULL = ["--arch", "olmo-1b", "--full"]
 EXPECT_FULL = ("completed=24/24 decode_steps=62 compaction_steps=12 "
                "compaction_dmas=2880 alloc_failures=0")
-PREFILL = (2, 4096)            # olmo-1b prefill (batch, seq)
+PREFILL = (2, 4096)            # olmo-1b and mamba2-370m prefill (batch, seq)
 SERVE_SMOKE = ["--arch", "olmo-1b"]
 EXPECT_SMOKE = ("completed=24/24 decode_steps=62 compaction_steps=12 "
                 "compaction_dmas=360 alloc_failures=0")
@@ -361,11 +366,105 @@ def phase_flash_attention():
     return record
 
 
+def ssd_flops_bytes(b, s, h, p, n, with_state):
+    """The SSD scan's least work: whatever the chunking, each step's
+    (x dt) outer B enters the (P, N) state and each step's y reads the state
+    through C, one FMA each per state entry (4 P N flops per (b, step, h));
+    the chunked form's intra-chunk triangle comes on top, so it is not
+    counted.  And its bytes: each f32 input read once and each output
+    written once."""
+    flops = 4 * b * s * h * p * n
+    nbytes = 4 * (2 * b * s * h * p + 2 * b * s * n + b * s * h + h
+                  + b * h * p * n * (2 if with_state else 1))
+    return flops, nbytes
+
+
+def phase_ssd_scan():
+    """K4 against its plain version (and the sequential recurrence on a
+    small case); returns the record of the mamba2-370m prefill case."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator("cuda").manual_seed(SEED + 3)
+    # Tolerance: f32 throughout, sums in another order (and 64-step
+    # sub-chunks in the kernel against 128-step chunks), so 1e-4 of the
+    # plain output's largest magnitude, for y and the final state alike.
+    tol = 1e-4
+    # (label, B, S, H, P, N, chunk, dt range, initial state, sequential too)
+    # dt 0.70-0.82 with a near -0.95 is the decay at mamba2-370m's init
+    # (about -0.72 a step: exp over the upper triangle would overflow);
+    # small dt keeps a long memory, so the carried state matters.
+    cases = [
+        ("mamba2-370m prefill", *PREFILL, 32, 64, 128, 128, (0.70, 0.82),
+         False, False),
+        ("mamba2 SMOKE widths", 2, 256, 8, 16, 16, 16, (0.1, 0.9), False,
+         False),
+        ("initial state", 2, 1024, 32, 64, 128, 128, (0.001, 0.05), True,
+         False),
+        ("sequential oracle", 1, 512, 4, 64, 128, 128, (0.01, 0.1), False,
+         True),
+    ]
+    record = None
+    for label, b, s, h, p, n, chunk, (lo, hi), with_state, seq in cases:
+        x = torch.randn((b, s, h, p), generator=gen, device="cuda")
+        dt = lo + (hi - lo) * torch.rand((b, s, h), generator=gen,
+                                         device="cuda")
+        a = -(0.9 + 0.1 * torch.rand((h,), generator=gen, device="cuda"))
+        bm, cm = (torch.randn((b, s, n), generator=gen, device="cuda")
+                  for _ in range(2))
+        init = (torch.randn((b, h, p, n), generator=gen, device="cuda")
+                if with_state else None)
+        args = (x, dt, a, bm, cm, chunk, init)
+        y, st = ss.ssd_scan(*args)
+        torch.cuda.synchronize()
+        oracles = [("chunked", ref.ssd_chunked_ref(*args))]
+        if seq:
+            oracles.append(("sequential", ref.ssd_scan_ref(*args[:5])))
+        errs = []
+        for name, (want_y, want_st) in oracles:
+            for what, got, want in (("y", y, want_y), ("state", st, want_st)):
+                scale = float(want.abs().max())
+                err = float((got - want).abs().max())
+                if not bool(torch.isfinite(got).all()) or err > tol * scale:
+                    fail(f"ssd_scan {label}: {what} against the {name} "
+                         f"version: max abs err {err:.3g} > {tol} x {scale:.3g}")
+                errs.append(f"{what} vs {name} {err:.3g} (|max| {scale:.3g})")
+        print(f"[K4] {label} (B,S,H,P,N)=({b},{s},{h},{p},{n}) chunk {chunk}"
+              f"{' with initial state' if with_state else ''}: max_abs_err "
+              f"{', '.join(errs)} (tol {tol} x |max|)", flush=True)
+        if record is not None:
+            continue
+        want_y = oracles[0][1][0]
+        err = float((y - want_y).abs().max())
+        del oracles
+        ms = device_ms("K4 kernel", lambda: ss.ssd_scan(*args), iters=20)
+        plain_ms = device_ms("K4 plain", lambda: ref.ssd_chunked_ref(*args),
+                             iters=3)
+        flops, nbytes = ssd_flops_bytes(b, s, h, p, n, with_state)
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = flops / F32_FLOPS * 1e3
+        record = dict(
+            name="ssd_scan", route="cuda",
+            source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:82",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(byte_ms, op_ms),
+            bound_by="bytes" if byte_ms >= op_ms else "operations",
+            library_ms=None)
+        print(f"[K4] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              "no library call; "
+              f"{nbytes} bytes, {flops} flops -> bound "
+              f"{record['bound_ms']:.6f} ms ({record['bound_by']}); kernel "
+              f"at {flops / ms / 1e9:.2f} TFLOP/s of that work", flush=True)
+    return record
+
+
 def reset_counts():
-    from repro_torch.kernels import flash_attention, gc_compact, paged_attention
+    from repro_torch.kernels import (flash_attention, gc_compact,
+                                     paged_attention, ssd_scan)
     flash_attention.launches = 0
     paged_attention.launches = 0
     gc_compact.launches = 0
+    ssd_scan.launches = 0
 
 
 def full_params(cfg):
@@ -625,6 +724,163 @@ def phase_profile(params):
     print_ranked(by_name, ["paged_attention", "gather_page"])
 
 
+def phase_prefill_mamba(params):
+    """The SSM prefill path at full mamba2-370m width; returns K4's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.train import build_prefill_step, synthetic_batch
+    cfg = get_config("mamba2-370m")
+    b, s = PREFILL
+    step, _ = build_prefill_step(cfg, b, s)
+    batch = synthetic_batch(cfg, 0, b, s)
+    batch.pop("targets")
+    step(params, batch)                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    # The path: counts set to 0 just before, read just after.
+    reset_counts()
+    t = time.perf_counter()
+    e0.record()
+    logits = step(params, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    launches = ss.launches
+    finite = bool(torch.isfinite(logits).all())
+    print(f"[prefill mamba2-370m] batch {b} seq {s} bf16, {cfg.n_layers} "
+          f"layers: logits {tuple(logits.shape)} {logits.dtype} "
+          f"finite={finite}; ssd_scan launches={launches}; one call "
+          f"{e0.elapsed_time(e1):.3f} ms by CUDA events ({wall:.3f} ms host "
+          f"wall); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if tuple(logits.shape) != (b, cfg.vocab) or not finite:
+        fail("prefill mamba2-370m: logits of the wrong shape or not finite")
+    if launches != cfg.n_layers:
+        fail(f"prefill mamba2-370m: ssd_scan launched {launches} times for "
+             f"{cfg.n_layers} layers")
+    return launches
+
+
+def phase_decode_mamba(params):
+    """O(1)-state decode (plain PyTorch, no kernel) against the K4 forward,
+    both in f32 at full mamba2-370m width: the forward over 256 tokens (two
+    128-step chunks), then 160 tokens one at a time.  Tolerance 2e-3 of the
+    logits' largest magnitude plus 2e-3 of each (the logits reach only
+    ~0.2 at this init, so a bare 2e-3 would say little): f32 throughout,
+    sums in different orders, through 48 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import ssm
+    from repro_torch.train import build_decode_step, synthetic_batch
+    tol, n = 2e-3, 160
+    cfg = dataclasses.replace(get_config("mamba2-370m"),
+                              compute_dtype=torch.float32)
+    tokens = torch.as_tensor(synthetic_batch(cfg, 1, 1, 256)["tokens"],
+                             device="cuda")
+    ss.launches = 0
+    with torch.no_grad():
+        want = ssm.forward(params, {"tokens": tokens}, cfg)[:, :n]
+    torch.cuda.synchronize()
+    if ss.launches != cfg.n_layers:
+        fail(f"decode mamba2-370m: the forward launched ssd_scan "
+             f"{ss.launches} times for {cfg.n_layers} layers")
+    step, _ = build_decode_step(cfg, 1, 256)
+    cache = ssm.init_cache(cfg, 1)
+    outs = []
+    for i in range(n):
+        if i == 1:                # the first step warms up; time the rest
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        lg, cache = step(params, cache, np.array([i], np.int32),
+                         tokens[:, i:i + 1])
+        outs.append(lg[:, 0])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    got = torch.stack(outs, 1)
+    diff = (got - want).abs()
+    err = float(diff.max())
+    scale = float(want.abs().max())
+    print(f"[decode mamba2-370m] f32 batch 1, {n} tokens one at a time "
+          f"through build_decode_step (O(1) state, no kernel) vs the K4 "
+          f"forward over 256 tokens ({ss.launches} launches, chunk "
+          f"{cfg.ssm_chunk}): max_abs_err={err:.3g} (tol {tol} x (|max| + "
+          f"|logit|), |logits| <= {scale:.3g}); {wall / (n - 1):.3f} ms a "
+          f"step over steps 2-{n} (host wall)", flush=True)
+    if bool((diff > tol * scale + tol * want.abs()).any()) \
+            or not bool(torch.isfinite(got).all()):
+        fail(f"decode mamba2-370m: decode and forward differ by {err:.3g}")
+
+
+CASTS = ("aten::to", "aten::contiguous")
+
+
+def cast_part(e):
+    """The part of a cast or copy the model makes itself (no aten op above
+    it): "param casts" for a weight (rank <= 2), "activation casts" for an
+    activation (K4's f32 inputs and its output, the norms' f32 round trip);
+    None for any other event."""
+    if e.name not in CASTS or not e.input_shapes:
+        return None
+    parent = e.cpu_parent
+    while parent is not None:
+        if parent.name.startswith("aten::"):
+            return None
+        parent = parent.cpu_parent
+    return ("param casts" if len(e.input_shapes[0]) <= 2
+            else "activation casts")
+
+
+def phase_profile_mamba(params):
+    """Where one full-width mamba2-370m prefill spends device time: K4, the
+    in/out projections (``@``), the unembedding (``einsum``), the conv and
+    elementwise passes, the param and activation casts, and the rest (other
+    copies, norm reductions, the embedding gather).  Printed only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import build_prefill_step, synthetic_batch
+    cfg = get_config("mamba2-370m")
+    step, _ = build_prefill_step(cfg, *PREFILL)
+    batch = synthetic_batch(cfg, 0, *PREFILL)
+    batch.pop("targets")
+    step(params, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = device_time_by_name(prof)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    parts = {"in/out projections": 0.0, "unembedding": 0.0,
+             "param casts": 0.0, "activation casts": 0.0}
+    for e in prof.events():
+        part = cast_part(e)
+        if e.name in PRODUCTS and (e.cpu_parent is None
+                                   or e.cpu_parent.name not in PRODUCTS):
+            part = ("in/out projections" if e.name == "aten::matmul"
+                    else "unembedding")
+        if part is not None:
+            parts[part] += e.device_time_total / 1e3
+    parts["ssd_scan (K4)"] = sum(
+        us for name, (us, _) in by_name.items() if "ssd_scan" in name) / 1e3
+    parts["conv + elementwise"] = sum(
+        us for name, (us, _) in by_name.items()
+        if "elementwise" in name and "copy" not in name) / 1e3
+    parts["the rest"] = busy_ms - sum(parts.values())
+    print(f"[profile] prefill mamba2-370m batch {PREFILL[0]} seq "
+          f"{PREFILL[1]} bf16: one call, wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * (1 - busy_ms / wall_ms):.1f}% idle) in "
+          f"{sum(n for _, n in by_name.values())} device activities",
+          flush=True)
+    for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  {part}")
+    print_ranked(by_name, ["ssd_scan"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -635,7 +891,7 @@ def main() -> int:
 
     phase_build()
     records = [phase_paged_attention(), phase_gc_compact(),
-               phase_flash_attention()]
+               phase_flash_attention(), phase_ssd_scan()]
     run_serve(SERVE_SMOKE, EXPECT_SMOKE)
 
     # The serve path: counts set to 0 just before, read just after.
@@ -665,6 +921,16 @@ def main() -> int:
     del params                    # 4.7 GB: make room for starcoder2-3b's 12
     torch.cuda.empty_cache()
     phase_prefill_starcoder()
+    torch.cuda.empty_cache()
+
+    # The SSM path: prefill with K4 (its counts are set and read inside),
+    # decode against the K4 forward in f32, and a profile.
+    from repro_torch.models import ssm
+    params = ssm.init(get_config("mamba2-370m"),
+                      torch.Generator("cuda").manual_seed(SEED), "cuda")
+    records[3]["launches"] = phase_prefill_mamba(params)
+    phase_decode_mamba(params)
+    phase_profile_mamba(params)
 
     print(json.dumps({"kernels": records}))
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["phi3_medium_14b", "phi3_mini_3_8b", "starcoder2_3b", "olmo_1b"]
+ARCHS = ["phi3_medium_14b", "phi3_mini_3_8b", "starcoder2_3b", "olmo_1b",
+         "mamba2_370m"]
 
 
 def canonical(name: str) -> str:

@@ -4,7 +4,8 @@ their plain PyTorch versions:
 * flash_attention — causal or full GQA attention over a whole sequence
   (prefill);
 * paged_attention — decode attention against the paged KV pool;
-* gc_compact — run-coalesced page-block gather (GC compaction of the pool).
+* gc_compact — run-coalesced page-block gather (GC compaction of the pool);
+* ssd_scan — the Mamba-2 SSD chunked scan (SSM prefill).
 
 ``ops`` is the public entry; ``ref`` holds the plain versions.
 """

@@ -15,6 +15,7 @@ import torch
 from .flash_attention import flash_attention
 from .gc_compact import gather_page_blocks
 from .paged_attention import paged_attention
+from .ssd_scan import ssd_scan
 
 
 def attention(q, k, v, causal: bool = True):
@@ -24,6 +25,12 @@ def attention(q, k, v, causal: bool = True):
 
 def decode_attention(q, k_pool, v_pool, page_table, lengths):
     return paged_attention(q, k_pool, v_pool, page_table, lengths)
+
+
+def ssd(x, dt, a, bmat, cmat, chunk: int, initial_state=None):
+    """Mamba-2 SSD scan.  x: (B,S,H,P) dt: (B,S,H) a: (H,) bmat/cmat:
+    (B,S,N) → (y (B,S,H,P), final_state (B,H,P,N) float32)."""
+    return ssd_scan(x, dt, a, bmat, cmat, chunk, initial_state)
 
 
 # --------------------------------------------------------------------------

@@ -8,7 +8,7 @@ JAX package, the kernel wrappers run them for CPU tensors, and
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -80,3 +80,79 @@ def compact_pages_ref(pool, valid) -> Tuple[torch.Tensor, torch.Tensor]:
     new_index = torch.where(valid, dst, -1)
     order = torch.argsort((~valid).int(), stable=True)   # valid pages first
     return pool[order], new_index
+
+
+def ssd_scan_ref(x, dt, a, bmat, cmat, initial_state=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential SSD recurrence (the definitional oracle).
+
+    x: (B, S, H, P); dt: (B, S, H); a: (H,) < 0; bmat/cmat: (B, S, N).
+    Returns (y: (B, S, H, P), final_state: (B, H, P, N) float32)."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt[:, t] * a)                          # (B,H)
+        state = state * decay[..., None, None] + \
+            (dt[:, t, :, None] * x[:, t])[..., None] * bmat[:, t, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cmat[:, t]))
+    return torch.stack(ys, 1), state
+
+
+def _segsum_exp(dA_cs):
+    """exp(segsum): the lower-triangular decay matrix of each chunk.
+    dA_cs: (..., cl) cumulative sums -> (..., cl, cl).  The mask is applied
+    before the exp (-inf -> 0): exp over the upper triangle would overflow
+    within one chunk (exp(+93) at dA = -0.72 a step and cl = 128)."""
+    diff = dA_cs[..., :, None] - dA_cs[..., None, :]
+    cl = dA_cs.shape[-1]
+    mask = torch.ones((cl, cl), dtype=torch.bool, device=dA_cs.device).tril()
+    return torch.exp(diff.masked_fill(~mask, float("-inf")))
+
+
+def ssd_chunked_ref(x, dt, a, bmat, cmat, chunk: int,
+                    initial_state: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan, the plain version of the ``ssd_scan`` kernel: per
+    chunk the intra-chunk term ((C.B^T) * L).(x.dt), the carried state's
+    term (C.state^T).exp(cumsum dA), and the state update.
+    x: (B,S,H,P) dt: (B,S,H) a: (H,) < 0 bmat/cmat: (B,S,N); S % chunk == 0.
+    Returns (y: (B,S,H,P), final_state: (B,H,P,N))."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    if s % chunk:
+        raise ValueError(f"ssd: seq {s} is not a multiple of chunk {chunk}")
+    nc = s // chunk
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+    bc = bmat.reshape(b, nc, chunk, n)
+    cc = cmat.reshape(b, nc, chunk, n)
+
+    dA_cs = torch.cumsum(dtc * a, dim=2)                    # (B,nc,cl,H)
+    decay = _segsum_exp(dA_cs.movedim(-1, -2))              # (B,nc,H,cl,cl)
+    xdt = xc * dtc[..., None]                               # (B,nc,cl,H,P)
+    scores = torch.einsum("bcin,bcjn->bcij", cc, bc)        # (B,nc,cl,cl)
+    gated = decay * scores[:, :, None, :, :]                # (B,nc,H,cl,cl)
+    y_diag = torch.einsum("bchij,bcjhp->bcihp", gated, xdt)
+
+    # chunk-final states: sum_j exp(dA_sum - dA_cs_j) dt_j B_j x_j
+    dA_sum = dA_cs[:, :, -1:, :]                            # (B,nc,1,H)
+    state_decay = torch.exp(dA_sum - dA_cs)                 # (B,nc,cl,H)
+    chunk_states = torch.einsum("bcjn,bcjh,bcjhp->bchpn",
+                                bc, state_decay * dtc, xc)
+
+    # inter-chunk recurrence; prev[c] is the state entering chunk c
+    chunk_decay = torch.exp(dA_sum[:, :, 0, :])             # (B,nc,H)
+    state = (torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device)
+             if initial_state is None else initial_state)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + chunk_states[:, c]
+    prev_states = torch.stack(prev, 1)                      # (B,nc,H,P,N)
+
+    in_decay = torch.exp(dA_cs)                             # (B,nc,cl,H)
+    y_off = torch.einsum("bcin,bchpn,bcih->bcihp", cc, prev_states, in_decay)
+    return (y_diag + y_off).reshape(b, s, h, p), state

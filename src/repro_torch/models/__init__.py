@@ -1,4 +1,4 @@
-"""Model zoo (dense transformers so far)."""
+"""Model zoo: dense transformers and the pure-SSM model (Mamba-2)."""
 
 from .config import ModelConfig
 from .registry import get_model

@@ -52,6 +52,38 @@ def materialize(tree, generator: torch.Generator,
     return build(tree)
 
 
+def stack_specs(layer: Params, n: int) -> Params:
+    """A layer's spec tree with a leading ``n_layers`` axis on every leaf."""
+    if isinstance(layer, ParamSpec):
+        return ParamSpec((n,) + layer.shape, ("layers",) + layer.axes,
+                         layer.scale, layer.dtype)
+    return {k: stack_specs(v, n) for k, v in layer.items()}
+
+
+def layer_params(layers: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked param tree (views, no copy)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+def unembed(params: Params, x, cfg):
+    """Final norm, then the (d_model, vocab) product: logits (B, S, V)."""
+    x = norm(x, params["final_norm"], cfg)
+    return torch.einsum("bsd,dv->bsv", x,
+                        params["unembed"].to(cfg.compute_dtype))
+
+
+def cross_entropy(logits, targets):
+    """Mean next-token loss in f32 over targets >= 0."""
+    logits = logits.float()
+    targets = targets.long()
+    logz = torch.logsumexp(logits, dim=-1)
+    # masked targets (< 0) pick any column: their term is multiplied by 0
+    gold = logits.gather(-1, targets.clamp(min=0)[..., None]).squeeze(-1)
+    mask = (targets >= 0).float()
+    return ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+
+
 # --------------------------------------------------------------------------
 # Normalization
 # --------------------------------------------------------------------------

@@ -16,17 +16,11 @@ import torch
 
 from ..device import resolve_device
 from .config import ModelConfig
-from .modules import (ParamSpec, _einsum, apply_rope, attention_specs, ffn,
-                      ffn_specs, gqa_attention, materialize, norm)
+from .modules import (ParamSpec, _einsum, apply_rope, attention_specs,
+                      cross_entropy, ffn, ffn_specs, gqa_attention,
+                      layer_params, materialize, norm, stack_specs, unembed)
 
 Params = Dict[str, Any]
-
-
-def _stack_specs(layer: Params, n: int) -> Params:
-    if isinstance(layer, ParamSpec):
-        return ParamSpec((n,) + layer.shape, ("layers",) + layer.axes,
-                         layer.scale, layer.dtype)
-    return {k: _stack_specs(v, n) for k, v in layer.items()}
 
 
 def specs(cfg: ModelConfig) -> Params:
@@ -36,7 +30,7 @@ def specs(cfg: ModelConfig) -> Params:
         "ffn_norm": ParamSpec((cfg.d_model,), ("embed",)),
         "ffn": ffn_specs(cfg),
     }
-    p: Params = {"layers": _stack_specs(layer, cfg.n_layers),
+    p: Params = {"layers": stack_specs(layer, cfg.n_layers),
                  "final_norm": ParamSpec((cfg.d_model,), ("embed",)),
                  "unembed": ParamSpec((cfg.d_model, cfg.vocab),
                                       ("embed", "vocab"))}
@@ -56,11 +50,6 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     return materialize(specs(cfg), generator, cfg.param_dtype, device)
 
 
-def _layer_params(layers: Params, i: int) -> Params:
-    return {k: _layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in layers.items()}
-
-
 def _layer(cfg: ModelConfig, x, lp: Params, positions, causal: bool):
     h, _ = gqa_attention(lp["attn"], norm(x, lp["attn_norm"], cfg),
                          positions, cfg, causal=causal)
@@ -75,31 +64,19 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict):
     return params["embed"][batch["tokens"]].to(cfg.compute_dtype)
 
 
-def _unembed(params: Params, x, cfg: ModelConfig):
-    x = norm(x, params["final_norm"], cfg)
-    return torch.einsum("bsd,dv->bsv", x,
-                        params["unembed"].to(cfg.compute_dtype))
-
-
 def forward(params: Params, batch: Dict, cfg: ModelConfig):
     """batch: tokens (B,S), positions (B,S), as tensors on the params'
     device.  Returns logits (B,S,V) in the compute dtype."""
     x = _embed_inputs(params, cfg, batch)
     positions = batch["positions"]
     for i in range(cfg.n_layers):
-        x = _layer(cfg, x, _layer_params(params["layers"], i), positions,
+        x = _layer(cfg, x, layer_params(params["layers"], i), positions,
                    cfg.causal)
-    return _unembed(params, x, cfg)
+    return unembed(params, x, cfg)
 
 
 def loss_fn(params: Params, batch: Dict, cfg: ModelConfig):
-    logits = forward(params, batch, cfg).float()
-    targets = batch["targets"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    # masked targets (< 0) pick any column: their term is multiplied by 0
-    gold = logits.gather(-1, targets.clamp(min=0)[..., None]).squeeze(-1)
-    mask = (targets >= 0).float()
-    return ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+    return cross_entropy(forward(params, batch, cfg), batch["targets"])
 
 
 # --------------------------------------------------------------------------
@@ -131,7 +108,7 @@ def decode_step(params: Params, cache, lengths, tokens, cfg: ModelConfig
     kv_pos = torch.arange(max_seq, device=tokens.device)[None, :]
     kv_pos = torch.where(kv_pos <= lengths[:, None], kv_pos, -1)  # (B,S)
     for i in range(cfg.n_layers):
-        lp = _layer_params(params["layers"], i)
+        lp = layer_params(params["layers"], i)
         xn = norm(x, lp["attn_norm"], cfg)
         # new k/v for this token: f32 weights against the compute-dtype
         # activations, promoted to f32 as JAX promotes them
@@ -146,4 +123,4 @@ def decode_step(params: Params, cache, lengths, tokens, cfg: ModelConfig
                              kv_positions=kv_pos)
         x = x + h
         x = x + ffn(lp["ffn"], norm(x, lp["ffn_norm"], cfg), cfg)
-    return _unembed(params, x, cfg), cache
+    return unembed(params, x, cfg), cache

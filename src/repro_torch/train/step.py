@@ -66,14 +66,18 @@ def build_prefill_step(cfg: ModelConfig, global_batch: int, seq: int,
 
 def build_decode_step(cfg: ModelConfig, global_batch: int, max_seq: int,
                       device="cuda"):
-    """One-token serve_step against a max_seq KV cache.  Returns
-    (serve_step, (params, cache, lengths, tokens) as meta tensors);
+    """One-token serve_step against a max_seq KV cache (or, for the SSM
+    family, the O(1) conv and SSM state; ``max_seq`` is then not used).
+    Returns (serve_step, (params, cache, lengths, tokens) as meta tensors);
     ``serve_step`` returns (logits (B, 1, V), cache), the cache updated in
     place."""
     dev = resolve_device(device)
     model = get_model(cfg)
     params_abs = _meta_params(model.specs(cfg), cfg.param_dtype)
-    cache_abs = model.init_cache(cfg, global_batch, max_seq, device=META)
+    if cfg.family == "ssm":
+        cache_abs = model.init_cache(cfg, global_batch, device=META)
+    else:
+        cache_abs = model.init_cache(cfg, global_batch, max_seq, device=META)
     lengths_abs = torch.empty((global_batch,), dtype=torch.int32,
                               device=META)
     tokens_abs = torch.empty((global_batch, 1), dtype=torch.int32,

@@ -177,3 +177,124 @@ def test_chunked_forward_matches_naive_through_the_kernel(cuda, arch):
     # f32 on both paths, sums in different orders: 1e-3
     torch.testing.assert_close(logits["chunked"], logits["naive"],
                                atol=1e-3, rtol=1e-3)
+
+
+def _ssd_inputs(gen, b, s, h, p, n, device, dt_range=(0.1, 0.9)):
+    x = torch.randn((b, s, h, p), generator=gen, device=device)
+    lo, hi = dt_range
+    dt = lo + (hi - lo) * torch.rand((b, s, h), generator=gen, device=device)
+    a = -(0.5 + torch.rand((h,), generator=gen, device=device))
+    bm = torch.randn((b, s, n), generator=gen, device=device)
+    cm = torch.randn((b, s, n), generator=gen, device=device)
+    return x, dt, a, bm, cm
+
+
+# tolerance: f32 throughout, the sums taken in another order (and the
+# kernel's 64-step sub-chunks against 128-step chunks), so 1e-4 of the
+# plain output's largest magnitude.
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 64, 3, 8, 16, 16), (1, 128, 2, 16, 32, 32), (2, 32, 4, 4, 8, 8),
+    (2, 256, 8, 16, 16, 16), (1, 512, 4, 64, 128, 128),
+    (2, 384, 3, 64, 16, 128), (1, 256, 2, 32, 128, 64), (1, 96, 5, 12, 24, 32),
+])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk,
+                                       with_state):
+    from repro_torch.kernels import ssd_scan
+    gen = torch.Generator(cuda).manual_seed(s * h + p + n)
+    args = _ssd_inputs(gen, b, s, h, p, n, cuda)
+    init = (torch.randn((b, h, p, n), generator=gen, device=cuda)
+            if with_state else None)
+    before = ssd_scan.launches
+    y, st = ops.ssd(*args, chunk, init)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want_y, want_st = ref.ssd_chunked_ref(*args, chunk, init)
+    assert y.shape == (b, s, h, p) and st.shape == (b, h, p, n)
+    assert st.dtype == torch.float32
+    for got, want in ((y, want_y), (st, want_st)):
+        assert bool(torch.isfinite(got).all())
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+    if s <= 128 and not with_state:        # and the sequential oracle
+        seq_y, seq_st = ref.ssd_scan_ref(*args)
+        assert float((y - seq_y).abs().max()) <= 1e-4 * float(
+            seq_y.abs().max())
+        assert float((st - seq_st).abs().max()) <= 1e-4 * float(
+            seq_st.abs().max())
+
+
+def test_ssd_scan_kernel_stays_finite_where_the_decay_overflows(cuda):
+    # dA = dt * a reaches about -0.72 a step: cumsum -93 within one
+    # 128-step chunk, where exp over the upper triangle is inf in f32.
+    gen = torch.Generator(cuda).manual_seed(5)
+    x, dt, _, bm, cm = _ssd_inputs(gen, 2, 512, 4, 64, 128, cuda,
+                                   dt_range=(0.7, 0.82))
+    a = torch.full((4,), -0.95, device=cuda)
+    y, st = ops.ssd(x, dt, a, bm, cm, 128)
+    want_y, want_st = ref.ssd_chunked_ref(x, dt, a, bm, cm, 128)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    assert float((y - want_y).abs().max()) <= 1e-4 * float(
+        want_y.abs().max())
+
+
+def test_ssd_scan_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels import ssd_scan
+    gen = torch.Generator(cuda).manual_seed(0)
+    x, dt, a, bm, cm = _ssd_inputs(gen, 1, 64, 2, 16, 16, cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssd_scan.ssd_scan(x, dt.cpu(), a, bm, cm, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2),
+                          dt, a, bm, cm, 16)
+    with pytest.raises(TypeError):
+        ssd_scan.ssd_scan(x.bfloat16(), dt, a, bm, cm, 16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_scan.ssd_scan(x.clone().requires_grad_(), dt, a, bm, cm, 16)
+    with torch.no_grad():      # no graph to cut off: runs
+        ssd_scan.ssd_scan(x.clone().requires_grad_(), dt, a, bm, cm, 16)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_scan.ssd_scan(x[:, :40].contiguous(), dt[:, :40].contiguous(), a,
+                          bm[:, :40].contiguous(), cm[:, :40].contiguous(), 16)
+    with pytest.raises(ValueError, match="unsupported"):
+        ssd_scan.ssd_scan(x, dt, a, bm, cm, 24)
+    with pytest.raises(ValueError, match="unsupported"):
+        ssd_scan.ssd_scan(x[..., :6].contiguous(), dt, a, bm, cm, 16)
+    with pytest.raises(ValueError, match="unsupported"):
+        ssd_scan.ssd_scan(torch.randn((1, 64, 2, 48), device=cuda), dt, a,
+                          bm, cm, 16)    # a 32-row p tile does not divide 48
+    with pytest.raises(ValueError, match="expected"):
+        ssd_scan.ssd_scan(x, dt, a[:1].contiguous(), bm, cm, 16)
+
+
+def test_ssm_forward_goes_through_the_kernel(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models import ssm
+    from repro_torch.train import build_decode_step, build_prefill_step
+    cfg = dataclasses.replace(get_config("mamba2-370m", smoke=True),
+                              compute_dtype=torch.float32)
+    params = ssm.init(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 48), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    step, _ = build_prefill_step(cfg, 2, 48)
+    ssd_scan.launches = 0
+    last = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == cfg.n_layers
+    # the plain path on the CPU, same weights and tokens: 1e-4 (f32, sums
+    # in other orders)
+    cpu_params = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+    want = ssm.forward(cpu_params, {"tokens": tokens.cpu()}, cfg)
+    torch.testing.assert_close(last.cpu(), want[:, -1], atol=1e-4, rtol=1e-4)
+    # decode (plain PyTorch, no kernel) against the kernel's forward
+    serve, _ = build_decode_step(cfg, 2, 0)
+    cache = ssm.init_cache(cfg, 2)
+    full = ssm.forward(params, {"tokens": tokens}, cfg)
+    for t in range(48):
+        lg, cache = serve(params, cache, np.full((2,), t, np.int32),
+                          tokens[:, t:t + 1])
+        torch.testing.assert_close(lg[:, 0], full[:, t], atol=2e-3,
+                                   rtol=2e-3)

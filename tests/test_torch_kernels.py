@@ -16,10 +16,13 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.gc_compact import gather_page_blocks as j_gather
 from repro.kernels.paged_attention import paged_attention as j_paged
+from repro.kernels.ssd_scan import ssd_scan as j_ssd_scan
+from repro.models.ssm import ssd_chunked as j_ssd_chunked
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gc_compact import gather_page_blocks
 from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
@@ -130,6 +133,9 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     q = torch.zeros((1, 8, 4, 16), device="meta")
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+    _, targs = _ssd_inputs(0, 1, 16, 2, 4, 8)
+    with pytest.raises(ValueError):
+        ssd_scan(*(t.to("meta") for t in targs), 8)
 
 
 @pytest.mark.parametrize("seed,n,block_pages,density", [
@@ -196,3 +202,83 @@ def test_gather_page_blocks_every_plane(block_pages, dst_page):
     kept = torch.ones(ptotal, dtype=torch.bool)
     kept[dst_page:dst_page + n] = False
     assert bool((out[:, kept] == 7.0).all())
+
+
+def _ssd_inputs(seed, b, s, h, p, n, dt_range=(0.1, 0.9), with_state=False):
+    """numpy inputs in the ranges of tests/test_kernels.py::test_ssd_scan,
+    as (JAX arrays, torch tensors)."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.normal(size=(b, s, h, p)),
+              rng.uniform(*dt_range, size=(b, s, h)),
+              -rng.uniform(0.5, 1.5, size=(h,)),
+              rng.normal(size=(b, s, n)), rng.normal(size=(b, s, n))]
+    if with_state:
+        arrays.append(rng.normal(size=(b, h, p, n)))
+    arrays = [x.astype(np.float32) for x in arrays]
+    return ([jnp.asarray(x) for x in arrays],
+            [torch.from_numpy(x) for x in arrays])
+
+
+# JAX's tolerance for the SSD scan (tests/test_kernels.py: atol 5e-5): f32
+# throughout, only the order of the sums differs.
+SSD_TOL = 5e-5
+# (B, S, H, P, N, chunk): tests/test_kernels.py::test_ssd_scan's sweep,
+# then tests/test_models.py::test_ssd_chunked_matches_recurrence's shape.
+SSD_SHAPES = [(2, 64, 3, 8, 16, 16), (1, 128, 2, 16, 32, 32),
+              (2, 32, 4, 4, 8, 8), (2, 32, 3, 4, 5, 8)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
+def test_ssd_scan_ref_matches_jax(b, s, h, p, n, chunk):
+    jargs, targs = _ssd_inputs(s + n, b, s, h, p, n)
+    y, st = ref.ssd_scan_ref(*targs)
+    wy, wst = jref.ssd_scan_ref(*jargs)
+    assert y.shape == (b, s, h, p) and st.shape == (b, h, p, n)
+    np.testing.assert_allclose(y.numpy(), np.asarray(wy), atol=SSD_TOL)
+    np.testing.assert_allclose(st.numpy(), np.asarray(wst), atol=SSD_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_chunked_ref_matches_jax(b, s, h, p, n, chunk, with_state):
+    jargs, targs = _ssd_inputs(s + p, b, s, h, p, n, with_state=with_state)
+    y, st = ref.ssd_chunked_ref(*targs[:5], chunk, *targs[5:])
+    wy, wst = j_ssd_chunked(*jargs[:5], chunk, *jargs[5:])
+    np.testing.assert_allclose(y.numpy(), np.asarray(wy), atol=SSD_TOL)
+    np.testing.assert_allclose(st.numpy(), np.asarray(wst), atol=SSD_TOL)
+    # what the model calls: on CPU tensors, the plain version itself
+    oy, ost = ops.ssd(*targs[:5], chunk, *targs[5:])
+    assert torch.equal(oy, y) and torch.equal(ost, st)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
+def test_ssd_plain_versions_match_pallas_kernel(b, s, h, p, n, chunk):
+    jargs, targs = _ssd_inputs(s * h, b, s, h, p, n)
+    wy, wst = j_ssd_scan(*jargs, chunk=chunk, interpret=True)
+    for y, st in (ref.ssd_chunked_ref(*targs, chunk),
+                  ref.ssd_scan_ref(*targs), ssd_scan(*targs, chunk)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(wy), atol=SSD_TOL)
+        np.testing.assert_allclose(st.numpy(), np.asarray(wst), atol=SSD_TOL)
+
+
+def test_ssd_chunked_ref_stays_finite_where_the_decay_overflows():
+    # dA = dt * a about -0.72 a step: the cumsum reaches about -93 within
+    # one 128-step chunk, and exp(+93) over the upper triangle is inf in f32
+    # (inf * 0 = NaN if the mask came after the exp).
+    jargs, targs = _ssd_inputs(9, 1, 256, 2, 8, 16, dt_range=(0.7, 0.82))
+    a = torch.full((2,), -0.95)
+    dA_cs = torch.cumsum(targs[1] * a, dim=1)
+    assert float(dA_cs[:, :128].min()) < -88.8     # exp(-min) is inf in f32
+    y, st = ref.ssd_chunked_ref(targs[0], targs[1], a, *targs[3:], 128)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    # The cumsum reaches about -190 over the two chunks; its f32 rounding
+    # (~1e-5 absolute) is ~1e-5 relative in each exp, on outputs up to ~10:
+    # JAX's atol plus the same rtol.
+    tol = dict(atol=SSD_TOL, rtol=SSD_TOL)
+    wy, wst = j_ssd_chunked(jargs[0], jargs[1], jnp.asarray(a.numpy()),
+                            *jargs[3:], 128)
+    np.testing.assert_allclose(y.numpy(), np.asarray(wy), **tol)
+    np.testing.assert_allclose(st.numpy(), np.asarray(wst), **tol)
+    sy, sst = ref.ssd_scan_ref(targs[0], targs[1], a, *targs[3:])
+    np.testing.assert_allclose(y.numpy(), sy.numpy(), **tol)
+    np.testing.assert_allclose(st.numpy(), sst.numpy(), **tol)

@@ -18,7 +18,7 @@ from repro.configs import get_config as j_get_config
 from repro.models import get_model as j_get_model
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
-from repro_torch.models import transformer
+from repro_torch.models import ssm, transformer
 from repro_torch.models.modules import ParamSpec, materialize
 from repro_torch.serving import PagedCacheConfig, PagedKVCache
 from repro_torch.train import build_decode_step, build_prefill_step
@@ -48,7 +48,8 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "phi3-mini-3.8b",
-                                  "starcoder2-3b", "phi3-medium-14b"])
+                                  "starcoder2-3b", "phi3-medium-14b",
+                                  "mamba2-370m"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_jax(arch, smoke):
     want, got = j_get_config(arch, smoke=smoke), get_config(arch, smoke=smoke)
@@ -72,17 +73,18 @@ def _flat(tree, prefix=""):
     return out
 
 
-def test_params_from_numpy_round_trips_jax_init():
-    cfg = j_get_config("olmo-1b", smoke=True)
+@pytest.mark.parametrize("arch,model", [("olmo-1b", transformer),
+                                        ("mamba2-370m", ssm)])
+def test_params_from_numpy_round_trips_jax_init(arch, model):
+    cfg = j_get_config(arch, smoke=True)
     params = j_get_model(cfg).init(cfg, jax.random.PRNGKey(3))
     tree = jax.tree.map(np.asarray, params)
     got = _flat(params_from_numpy(tree, device="cpu"))
     want = _flat(tree)
     assert sorted(got) == sorted(want)
     # the port's own spec tree has the same names and shapes
-    spec = _flat(transformer.init(get_config("olmo-1b", smoke=True),
-                                  torch.Generator().manual_seed(0),
-                                  device="cpu"))
+    spec = _flat(model.init(get_config(arch, smoke=True),
+                            torch.Generator().manual_seed(0), device="cpu"))
     assert {k: tuple(v.shape) for k, v in spec.items()} == \
         {k: v.shape for k, v in want.items()}
     for name, w in want.items():
@@ -122,6 +124,14 @@ ENTRY_POINTS = {
         get_config("olmo-1b", smoke=True), 1, 8),
     "build_decode_step": lambda: build_decode_step(
         get_config("olmo-1b", smoke=True), 1, 8),
+    "ssm.init": lambda: ssm.init(
+        get_config("mamba2-370m", smoke=True), torch.Generator()),
+    "ssm.init_cache": lambda: ssm.init_cache(
+        get_config("mamba2-370m", smoke=True), 1),
+    "build_prefill_step mamba2": lambda: build_prefill_step(
+        get_config("mamba2-370m", smoke=True), 1, 16),
+    "build_decode_step mamba2": lambda: build_decode_step(
+        get_config("mamba2-370m", smoke=True), 1, 16),
 }
 
 
