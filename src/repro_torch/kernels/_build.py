@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library, loaded with ``ctypes``.
 Nothing includes PyTorch's headers, so a build takes seconds.  Libraries are
 built at first use into ``build/kernels/`` at the root of the checkout and
-named by a hash of their source, so an edited source is rebuilt; every
-source is compiled at once, one ``nvcc`` each.
+named by a hash of what goes into them (the source, every shared
+``csrc/*.cuh`` header and ``NVCC_FLAGS``), so an edited source, header or
+flag is rebuilt; every source is compiled at once, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -44,7 +45,11 @@ def sources():
 
 
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 

@@ -7,35 +7,49 @@
 //
 // Bound on an H100: operations.  At the prefill shapes (S = 1024-4096, D =
 // 96-128) a call does about 2*S*D flops per byte it must move, hundreds to
-// thousands of flops per byte, far above the ~20 f32 (or ~295 bf16) flops
-// per byte at which the card's arithmetic, not its memory, is the limit.
-// This first kernel does its products on the f32 SIMT units (67 TFLOP/s
-// peak), not on the tensor cores (989 TFLOP/s bf16), so it stays well over
-// the bf16 bound; mma.sync/wgmma, TMA and one CTA for the g query heads of a
-// KV head are left for a later change.
+// thousands of flops per byte, far above the ~295 bf16 flops per byte at
+// which the tensor cores (989 TFLOP/s dense bf16), not the memory, are the
+// limit.
 //
-// Design: one CTA of 4 warps per (b, q head, 64-row q tile).  A loop inside
-// the CTA walks 64-key KV tiles in order up to the last tile the q tile can
-// see (the causal bound), in place of the TPU grid's sequential axis.  Each
-// step stages the K and V tiles in shared memory in the input type with
-// 16-byte loads (rows padded by 16 bytes, so the 8 rows one quarter-warp
-// reads fall in distinct banks).  A warp owns 16 query rows; a lane owns 4
-// of them and 8 keys of the tile, so each q and k value loaded from shared
-// memory feeds 8 or 4 FMAs.  The online-softmax state (m, l) and the output
-// accumulator (4 rows x the lane's D/8 columns) stay in registers in f32;
-// row max and sum are reduced over the 8 lanes of a row with shuffles.  The
-// probabilities go through a per-warp shared tile to the P.V product.
-// Any S >= 1 is taken: keys at or past S get no weight, their staged rows
-// are zeroed (0 * stale shared memory may be NaN), and rows at or past S are
-// not stored.  q tiles run longest-first, so the causal tail is not left to
-// a few SMs at the end.
+// The dtype chooses the kernel, and nothing else does:
+//
+// bf16 (the model's prefill): a warp-specialised tensor-core kernel, the
+// FlashAttention-3 core without its refinements.  One CTA per (128-row q
+// tile, q head, batch row), q tiles longest-first.  One producer thread
+// issues TMA loads: Q once, then K and V tiles (128 keys, 64 at D = 256)
+// into a 2-stage ring in shared memory with 128-byte swizzle, each stage
+// with full barriers (K, V) and an empty barrier.  Two consumer warpgroups
+// of 64 q rows each compute S = Q K^T with wgmma from shared memory into
+// f32 registers, run the online softmax there (base 2, the scale folded in,
+// row max over the 4 lanes of a row by shuffles, row sums per lane until
+// the end), round P to bf16 in registers and use it as the A operand of
+// O += P V, with V as the MN-major B operand, so P never touches shared
+// memory.  Only the diagonal tile and a ragged last tile are masked.
+// setmaxnreg moves registers from the producer to the consumers (232 each:
+// at D = 128 a thread holds S and O, 64 f32 each).  D is padded to 64, 128
+// or 256 by TMA's zero fill past the tensor's extent; rows past S read as
+// zeros and are not stored, and keys past S are masked.  The softmax
+// weights are rounded to bf16 before P V, as the plain version does.
+//
+// f32 (the model's f32 checks): the first, SIMT kernel, kept so its results
+// stay exact f32 (TF32 would round the products).  One CTA of 4 warps per
+// (b, q head, 64-row q tile) walks 64-key KV tiles staged in shared memory
+// with 16-byte loads; a lane owns 4 rows and 8 keys of a tile, so each
+// value read from shared memory feeds 8 or 4 FMAs; the probabilities go
+// through a per-warp shared tile to the P.V product.  Keys at or past S get
+// no weight (their staged rows are zeroed) and rows at or past S are not
+// stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+// ---- f32: SIMT kernel ----
 
 constexpr int kThreads = 128;          // 4 warps
 constexpr int kBlockQ = 64;            // query rows per CTA, 16 per warp
@@ -55,24 +69,9 @@ __device__ __forceinline__ void load8(const float* src, float* dst) {
   dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void copy8(const float* src, float* dst) {
   reinterpret_cast<float4*>(dst)[0] = reinterpret_cast<const float4*>(src)[0];
   reinterpret_cast<float4*>(dst)[1] = reinterpret_cast<const float4*>(src)[1];
-}
-
-__device__ __forceinline__ void copy8(const __nv_bfloat16* src, __nv_bfloat16* dst) {
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
 }
 
 __device__ __forceinline__ void zero8(float* dst) {
@@ -80,21 +79,9 @@ __device__ __forceinline__ void zero8(float* dst) {
   reinterpret_cast<float4*>(dst)[1] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-__device__ __forceinline__ void zero8(__nv_bfloat16* dst) {
-  *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-}
-
 __device__ __forceinline__ void store8(float* dst, const float* x) {
   reinterpret_cast<float4*>(dst)[0] = make_float4(x[0], x[1], x[2], x[3]);
   reinterpret_cast<float4*>(dst)[1] = make_float4(x[4], x[5], x[6], x[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* x) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-  *reinterpret_cast<uint4*>(dst) = raw;
 }
 
 // At most 218,112 bytes (f32, D = 256): every supported D fits in a CTA.
@@ -296,6 +283,328 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   return launch_groups<T, 4>(q, k, v, out, batch, seq, h, hkv, d, causal, sm_scale, stream);
 }
 
+// ---- bf16: warp-specialised tensor-core kernel ----
+
+namespace tc {
+
+using hopper::smem_addr;
+
+constexpr int kBlockM = 128;  // q rows per CTA, 64 per consumer warpgroup
+constexpr int kStages = 2;    // K/V ring depth
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 128;  // + one producer warpgroup
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;  // 2 x 232 + 40 = 504 of 512 per lane
+
+// kD: the instantiated head width (D rounded up to 64, 128 or 256; TMA
+// fills the columns past D with zeros).  The tiles are stored as panels of
+// 64 columns (128-byte rows, 128-byte swizzle), the widest a swizzled TMA
+// box can be.
+template <int kD>
+struct Tile {
+  static constexpr int kBlockN = kD == 256 ? 64 : 128;  // keys per KV tile
+  static constexpr int kPanels = kD / 64;
+  static constexpr int kQPanel = kBlockM * 128;   // bytes of one Q panel
+  static constexpr int kKVPanel = kBlockN * 128;  // bytes of one K/V panel
+  static constexpr int kQBytes = kPanels * kQPanel;
+  static constexpr int kKVBytes = kPanels * kKVPanel;
+  static constexpr int kOHalves = kD == 256 ? 2 : 1;  // PV as N = 128 halves
+  static constexpr int kOHalf = kD == 64 ? 32 : 64;   // f32 per thread a half
+  // Q, the K ring, the V ring, 7 barriers, and 1 KB to align the base:
+  // 83,008 bytes at D 64, 164,928 at 128, 197,696 at 256.
+  static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + 64 + 1024;
+};
+
+template <int kN>
+__device__ __forceinline__ void wgmma_ss(float (&d)[kN / 2], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  if constexpr (kN == 64) hopper::wgmma_ss_n64(d, a, b, scale_d);
+  else hopper::wgmma_ss_n128(d, a, b, scale_d);
+}
+
+template <int kN>
+__device__ __forceinline__ void wgmma_rs(float (&d)[kN / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (kN == 64) hopper::wgmma_rs_n64(d, a, b, 1);
+  else hopper::wgmma_rs_n128(d, a, b, 1);
+}
+
+// One CTA per (128-row q tile, q head, batch row): warpgroups 0 and 1
+// consume (64 q rows each), warpgroup 2 produces (one thread issues TMA).
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          __nv_bfloat16* __restrict__ out, int seq, int h,
+                          int hkv, int d, int causal, float scale_log2) {
+  using T = Tile<kD>;
+  constexpr int kN = T::kBlockN;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  // 128-byte swizzle repeats every 1024 bytes; TMA and wgmma must agree on
+  // where each pattern starts, so every tile starts on a 1024-byte boundary.
+  unsigned char* base = tc_smem + ((1024 - (smem_addr(tc_smem) & 1023)) & 1023);
+  unsigned char* q_s = base;
+  unsigned char* k_s = q_s + T::kQBytes;            // kStages tiles
+  unsigned char* v_s = k_s + kStages * T::kKVBytes;  // kStages tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(v_s + kStages * T::kKVBytes);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;   // [kStages]
+  uint64_t* v_full = bars + 3;   // [kStages]
+  uint64_t* empty = bars + 5;    // [kStages]
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = head / (h / hkv);
+  const int q0 = qt * kBlockM;
+  const int kv_end = causal ? min(q0 + kBlockM, seq) : seq;
+  const int n_kv = (kv_end + kN - 1) / kN;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer: Q once, then K and V tiles into the ring, each stage reused
+    // once every consumer thread has released it.
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      hopper::mbar_expect_tx(q_full, T::kQBytes);
+      for (int p = 0; p < T::kPanels; ++p)
+        hopper::tma_load_4d(q_s + p * T::kQPanel, &tm_q, q_full, p * 64, head, q0, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) hopper::mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(&k_full[s], T::kKVBytes);
+        for (int p = 0; p < T::kPanels; ++p)
+          hopper::tma_load_4d(k_s + s * T::kKVBytes + p * T::kKVPanel, &tm_k,
+                              &k_full[s], p * 64, kvh, j * kN, b);
+        hopper::mbar_expect_tx(&v_full[s], T::kKVBytes);
+        for (int p = 0; p < T::kPanels; ++p)
+          hopper::tma_load_4d(v_s + s * T::kKVBytes + p * T::kKVPanel, &tm_v,
+                              &v_full[s], p * 64, kvh, j * kN, b);
+      }
+    }
+  } else {
+    // Consumers: S = Q K^T and O += P V on the tensor cores, the online
+    // softmax in registers in between.
+    hopper::regs_inc<kConsumerRegs>();
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x / 32) & 3;
+    const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // and row0 + 8
+    const int col0 = 2 * (lane & 3);  // + 8 i: the thread's accumulator columns
+
+    float o[T::kOHalves][T::kOHalf];
+#pragma unroll
+    for (int x = 0; x < T::kOHalves; ++x)
+#pragma unroll
+      for (int i = 0; i < T::kOHalf; ++i) o[x][i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+    const uint32_t q_addr = smem_addr(q_s) + wg * 64 * 128;
+    hopper::mbar_wait(q_full, 0);
+
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      const int k0 = j * kN;
+
+      // S = Q K^T: both K-major; a 16-column step is 32 bytes into the
+      // swizzled row, a 64-column step the next panel.
+      float sc[kN / 2];
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) sc[i] = 0.f;
+      hopper::mbar_wait(&k_full[s], parity);
+      const uint32_t k_addr = smem_addr(k_s + s * T::kKVBytes);
+      hopper::fence_regs(sc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const int p = kk / 4, c = (kk % 4) * 32;
+        wgmma_ss<kN>(sc,
+                     hopper::sw128_desc(q_addr + p * T::kQPanel + c, 16, 1024),
+                     hopper::sw128_desc(k_addr + p * T::kKVPanel + c, 16, 1024),
+                     kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(sc);
+
+      // Mask only where a key can be past S or past the row (the diagonal
+      // tile and the ragged last one); the warpgroup branches as one.
+      if (k0 + kN > seq || (causal && k0 + kN - 1 > q0 + wg * 64)) {
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) {
+          const int key = k0 + 8 * (i / 4) + col0 + (i & 1);
+          const int row = row0 + 8 * ((i / 2) & 1);
+          if (key >= seq || (causal && key > row)) sc[i] = -INFINITY;
+        }
+      }
+
+      // Online softmax in base 2 with the scale folded in.  A row's 4
+      // threads (lanes 4r .. 4r + 3) reduce its max with two shuffles.
+      float alpha[2], mu[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < kN / 8; ++i)
+          mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx * scale_log2);
+        // A row with no visible key yet adds nothing (ex2(-inf) = 0).
+        mu[r] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[r] = hopper::ex2(m[r] - mu[r]);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int x = 0; x < T::kOHalves; ++x)
+#pragma unroll
+        for (int i = 0; i < T::kOHalf; ++i) o[x][i] *= alpha[(i / 2) & 1];
+
+      // P = exp2(S scale - m), rounded to bf16 in registers: the accumulator
+      // columns 16 kk .. 16 kk + 15 are the A fragment of key step kk.
+      uint32_t pa[kN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int r = jj & 1;
+          const float e0 = hopper::ex2(fmaf(sc[8 * kk + 2 * jj], scale_log2, -mu[r]));
+          const float e1 = hopper::ex2(fmaf(sc[8 * kk + 2 * jj + 1], scale_log2, -mu[r]));
+          l[r] += e0 + e1;
+          pa[kk][jj] = hopper::pack_bf16(e0, e1);
+        }
+      }
+
+      // O += P V: V (keys x D, D contiguous) is the MN-major B operand; a
+      // 16-key step is 16 rows (2048 bytes), panels are kKVPanel apart.
+      hopper::mbar_wait(&v_full[s], parity);
+      const uint32_t v_addr = smem_addr(v_s + s * T::kKVBytes);
+#pragma unroll
+      for (int x = 0; x < T::kOHalves; ++x) hopper::fence_regs(o[x]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+#pragma unroll
+        for (int x = 0; x < T::kOHalves; ++x)
+          wgmma_rs<kD == 64 ? 64 : 128>(
+              o[x], pa[kk],
+              hopper::sw128_desc(v_addr + x * 2 * T::kKVPanel + kk * 2048,
+                                 T::kKVPanel, 1024));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+#pragma unroll
+      for (int x = 0; x < T::kOHalves; ++x) hopper::fence_regs(o[x]);
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue: the row sums over the row's 4 threads, O / l in bf16, rows
+    // at or past S and columns at or past D not stored.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = 1.f / l[r];  // > 0: key 0 is visible to every row
+    }
+    const size_t q_row = (size_t)h * d;
+#pragma unroll
+    for (int x = 0; x < T::kOHalves; ++x) {
+#pragma unroll
+      for (int i = 0; i < T::kOHalf; i += 2) {
+        const int r = (i / 2) & 1;
+        const int row = row0 + 8 * r;
+        const int col = x * 128 + 8 * (i / 4) + col0;
+        if (row < seq && col < d) {
+          __nv_bfloat16* dst = out + ((size_t)b * seq + row) * q_row + (size_t)head * d + col;
+          *reinterpret_cast<uint32_t*>(dst) =
+              hopper::pack_bf16(o[x][i] * l[r], o[x][i + 1] * l[r]);
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver the runtime has loaded (so the
+// library links against nothing but the runtime).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (batch, seq, heads, d) bf16 tensor as a 4-d map (d innermost) read in
+// boxes of 64 columns x `rows` tokens of one head; out-of-range columns and
+// tokens read as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq,
+              int heads, int d, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)seq * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kD>
+int launch(const void* q, const void* k, const void* v, void* out, int batch,
+           int seq, int h, int hkv, int d, int causal, float sm_scale,
+           cudaStream_t stream) {
+  auto kernel = flash_attention_tc_kernel<kD>;
+  constexpr int smem = Tile<kD>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, batch, seq, h, d, kBlockM) ||
+      !make_map(&tk, k, batch, seq, hkv, d, Tile<kD>::kBlockN) ||
+      !make_map(&tv, v, batch, seq, hkv, d, Tile<kD>::kBlockN))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((seq + kBlockM - 1) / kBlockM, h, batch);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), seq, h, hkv, d, causal,
+      sm_scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and out alike).
@@ -311,7 +620,10 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(q, k, v, out, batch, seq, h, hkv, d, causal, sm_scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, batch, seq, h, hkv, d, causal, sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (d <= 64)
+    return tc::launch<64>(q, k, v, out, batch, seq, h, hkv, d, causal, sm_scale, s);
+  if (d <= 128)
+    return tc::launch<128>(q, k, v, out, batch, seq, h, hkv, d, causal, sm_scale, s);
+  return tc::launch<256>(q, k, v, out, batch, seq, h, hkv, d, causal, sm_scale, s);
 }

@@ -105,9 +105,11 @@ def test_serve_driver_runs_through_both_kernels(cuda):
     assert 0 < gc_compact.launches <= 24
 
 
-# tolerance: 2e-3 for f32 (the plain version's einsums and the kernel sum in
-# different orders); 2e-2 for bf16 (the plain version rounds the scores and
-# the softmax weights to bf16, the kernel keeps both in f32).
+# tolerance: 2e-3 for f32 (the SIMT kernel and the plain version's einsums
+# sum in different orders); 2e-2 for bf16 (the plain version rounds the
+# scores to bf16, the tensor-core kernel keeps them in f32; both round the
+# softmax weights to bf16 before the product with V, the kernel before it
+# divides by the row sum, the plain version after).
 @pytest.mark.parametrize("b,s,h,hkv,d", [
     (2, 256, 4, 2, 64), (1, 128, 8, 8, 128), (2, 512, 4, 1, 32),
     (1, 256, 6, 3, 64), (1, 1000, 8, 2, 64), (2, 77, 12, 1, 96),
@@ -130,6 +132,35 @@ def test_flash_attention_kernel_matches_plain(cuda, b, s, h, hkv, d, dtype,
     assert out.dtype == dtype and out.shape == (b, s, h, d)
     assert bool(torch.isfinite(out).all())
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+# bf16 cases of the tensor-core kernel beyond the sweep: the olmo-1b prefill
+# shape; a diagonal tile cut short by S (200 rows against 128-row tiles);
+# and nearly one-hot rows (q x 30, score std ~30, so a row's max jumps by
+# hundreds between KV tiles and the rescaling must be exact).  The last is
+# held against the plain version in f32 on the same bf16 values: the bf16
+# plain version rounds scores near 100 to steps of 0.5, which alone moves a
+# weight by e^0.25.  Tolerance 2e-2 (bf16 weights and output).
+@pytest.mark.parametrize("b,s,h,hkv,d,q_scale,plain_dtype", [
+    (2, 4096, 16, 16, 128, 1.0, torch.bfloat16),
+    (1, 200, 4, 2, 128, 1.0, torch.bfloat16),
+    (1, 2048, 4, 2, 128, 30.0, torch.float32),
+])
+def test_flash_attention_bf16_kernel_cases(cuda, b, s, h, hkv, d, q_scale,
+                                           plain_dtype):
+    gen = torch.Generator(cuda).manual_seed(s + h)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in [(b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)])
+    q, k, v = (q * q_scale).bfloat16(), k.bfloat16(), v.bfloat16()
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = ref.flash_attention_ref(*(t.to(plain_dtype) for t in (q, k, v)))
+    assert out.dtype == torch.bfloat16 and out.shape == (b, s, h, d)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def test_flash_attention_refuses_what_it_cannot_take(cuda):
