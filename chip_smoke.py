@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero:
    widths, head_dim 96 for phi3-mini, a ragged f32 case for K3, mamba2's
    SMOKE widths and an initial state for K4), and time the kernel, the plain
    version and a library yardstick where one exists (K3 at each of its
-   three bf16 shapes, with its TFLOP/s).
+   three bf16 shapes, with its TFLOP/s; each of K4's three launches by the
+   profiler).
 3. Run the serve driver at full olmo-1b width (16 layers, d_model 2048) and
    check its counts and that it went through K1 and K2.
 4. Prefill olmo-1b at full width (batch 2, seq 4096, bf16) through
@@ -59,10 +60,11 @@ SERVE_SMOKE = ["--arch", "olmo-1b"]
 EXPECT_SMOKE = ("completed=24/24 decode_steps=62 compaction_steps=12 "
                 "compaction_dmas=360 alloc_failures=0")
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 outside the
-# tensor cores, dense bf16 on the tensor cores.  Bounds are stated against
+# tensor cores, dense TF32 and bf16 on the tensor cores.  Bounds are stated against
 # them.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 SEED = 0
 
@@ -394,9 +396,10 @@ def phase_ssd_scan():
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ss
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
-    # Tolerance: f32 throughout, sums in another order (and 64-step
-    # sub-chunks in the kernel against 128-step chunks), so 1e-4 of the
-    # plain output's largest magnitude, for y and the final state alike.
+    # Tolerance: f32 inputs and outputs, sums in another order and the
+    # kernel's products in split TF32 (each operand split into two TF32
+    # parts, hi.hi + hi.lo + lo.hi), so 1e-4 of the plain output's largest
+    # magnitude, for y and the final state alike.
     tol = 1e-4
     # (label, B, S, H, P, N, chunk, dt range, initial state, sequential too)
     # dt 0.70-0.82 with a near -0.95 is the decay at mamba2-370m's init
@@ -445,12 +448,23 @@ def phase_ssd_scan():
         want_y = oracles[0][1][0]
         err = float((y - want_y).abs().max())
         del oracles
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ss.ssd_scan(*args)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        print(f"[K4] {label}: one call takes {extra / 2**20:.1f} MiB of device "
+              f"memory at its peak (y, the final state and the workspace of "
+              f"chunk states)", flush=True)
         ms = device_ms("K4 kernel", lambda: ss.ssd_scan(*args), iters=20)
         plain_ms = device_ms("K4 plain", lambda: ref.ssd_chunked_ref(*args),
                              iters=3)
         flops, nbytes = ssd_flops_bytes(b, s, h, p, n, with_state)
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        op_ms = flops / F32_FLOPS * 1e3
+        # The products run as split TF32: three TF32 products for each
+        # f32 one, on the tensor cores.
+        op_ms = 3 * flops / TF32_FLOPS * 1e3
         record = dict(
             name="ssd_scan", route="cuda",
             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -462,9 +476,31 @@ def phase_ssd_scan():
         print(f"[K4] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               "no library call; "
               f"{nbytes} bytes, {flops} flops -> bound "
-              f"{record['bound_ms']:.6f} ms ({record['bound_by']}); kernel "
-              f"at {flops / ms / 1e9:.2f} TFLOP/s of that work", flush=True)
+              f"{record['bound_ms']:.6f} ms ({record['bound_by']}: 3 x the "
+              f"flops at {TF32_FLOPS / 1e12:.0f} TFLOP/s TF32, the bytes at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s; {flops / F32_FLOPS * 1e3:.6f} "
+              f"ms on the f32 SIMT units); kernel at "
+              f"{flops / ms / 1e9:.2f} TFLOP/s of that work", flush=True)
+        ssd_launch_times(lambda: ss.ssd_scan(*args))
     return record
+
+
+def ssd_launch_times(call, calls: int = 10):
+    """Device time of each of K4's launches (chunk states, state passing,
+    chunk scan), by kernel name from the profiler, over a few calls."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    by_name = {name: v for name, v in device_time_by_name(prof).items()
+               if "ssd_scan" in name}
+    total = sum(us for us, _ in by_name.values())
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        print(f"[K4]   {us / n / 1e3:.4f} ms a launch ({100 * us / total:.1f}%)"
+              f" x{n // calls} a call: {name[:80]}", flush=True)
 
 
 def reset_counts():

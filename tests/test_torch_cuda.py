@@ -220,9 +220,10 @@ def _ssd_inputs(gen, b, s, h, p, n, device, dt_range=(0.1, 0.9)):
     return x, dt, a, bm, cm
 
 
-# tolerance: f32 throughout, the sums taken in another order (and the
-# kernel's 64-step sub-chunks against 128-step chunks), so 1e-4 of the
-# plain output's largest magnitude.
+# tolerance: f32 inputs and outputs, the sums taken in another order and
+# the kernel's products in split TF32 (hi.hi + hi.lo + lo.hi, each operand
+# split into two TF32 parts), so 1e-4 of the plain output's largest
+# magnitude.
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
     (2, 64, 3, 8, 16, 16), (1, 128, 2, 16, 32, 32), (2, 32, 4, 4, 8, 8),
     (2, 256, 8, 16, 16, 16), (1, 512, 4, 64, 128, 128),
@@ -269,6 +270,49 @@ def test_ssd_scan_kernel_stays_finite_where_the_decay_overflows(cuda):
         want_y.abs().max())
 
 
+# The shapes the models give the kernel, at full width, against the chunked
+# plain version at 1e-4 of its largest magnitude (as above): mamba2-370m's
+# prefill; jamba's SSM (N = 16, P = 64); a long memory (small dt, an initial
+# state) that state passing carries across all 32 chunks; P = 48, which
+# only the chunk-parallel kernel takes.
+@pytest.mark.parametrize("b,s,h,p,n,dt_range,with_state", [
+    (2, 4096, 32, 64, 128, (0.70, 0.82), False),
+    (2, 1024, 8, 64, 16, (0.1, 0.9), False),
+    (2, 4096, 4, 64, 128, (0.001, 0.05), True),
+    (1, 512, 3, 48, 64, (0.1, 0.9), True),
+])
+def test_ssd_scan_kernel_at_model_shapes(cuda, b, s, h, p, n, dt_range,
+                                         with_state):
+    gen = torch.Generator(cuda).manual_seed(s + h + n)
+    x, dt, _, bm, cm = _ssd_inputs(gen, b, s, h, p, n, cuda, dt_range)
+    a = -(0.9 + 0.1 * torch.rand((h,), generator=gen, device=cuda))
+    init = (torch.randn((b, h, p, n), generator=gen, device=cuda)
+            if with_state else None)
+    y, st = ops.ssd(x, dt, a, bm, cm, 128, init)
+    want_y, want_st = ref.ssd_chunked_ref(x, dt, a, bm, cm, 128, init)
+    for got, want in ((y, want_y), (st, want_st)):
+        assert bool(torch.isfinite(got).all())
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_ssd_scan_kernel_keeps_no_state_between_calls(cuda):
+    # The workspace is new on every call: two calls on other inputs in a
+    # row give what the same calls give alone, bit for bit.
+    gen = torch.Generator(cuda).manual_seed(11)
+    first = _ssd_inputs(gen, 2, 512, 8, 64, 128, cuda)
+    second = _ssd_inputs(gen, 2, 512, 8, 64, 128, cuda, (0.001, 0.05))
+    init = torch.randn((2, 8, 64, 128), generator=gen, device=cuda)
+    y1, st1 = ops.ssd(*first, 128)
+    y2, st2 = ops.ssd(*second, 128, init)
+    torch.cuda.synchronize()
+    y2b, st2b = ops.ssd(*second, 128, init)
+    y1b, st1b = ops.ssd(*first, 128)
+    for got, want in ((y1b, y1), (st1b, st1), (y2b, y2), (st2b, st2)):
+        assert torch.equal(got, want)
+    assert not torch.equal(y1, y2)
+
+
 def test_ssd_scan_refuses_what_it_cannot_take(cuda):
     from repro_torch.kernels import ssd_scan
     gen = torch.Generator(cuda).manual_seed(0)
@@ -292,8 +336,8 @@ def test_ssd_scan_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="unsupported"):
         ssd_scan.ssd_scan(x[..., :6].contiguous(), dt, a, bm, cm, 16)
     with pytest.raises(ValueError, match="unsupported"):
-        ssd_scan.ssd_scan(torch.randn((1, 64, 2, 48), device=cuda), dt, a,
-                          bm, cm, 16)    # a 32-row p tile does not divide 48
+        ssd_scan.ssd_scan(torch.randn((1, 64, 2, 68), device=cuda), dt, a,
+                          bm, cm, 16)    # P above 64
     with pytest.raises(ValueError, match="expected"):
         ssd_scan.ssd_scan(x, dt, a[:1].contiguous(), bm, cm, 16)
 
