@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
-// loads, shared-memory matrix descriptors for 128-byte swizzled tiles,
+// loads, cp.async with zero fill, 1-D bulk copies, shared-memory matrix
+// descriptors for 128-byte swizzled tiles,
 // register reallocation, and the four wgmma shapes the bf16 attention
 // kernel issues (bf16 inputs, f32 accumulators).
 //
@@ -70,6 +71,63 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---- cp.async and 1-D bulk copies ----
+
+// 16 bytes from global to shared memory; with src_bytes 0 nothing is read
+// and the 16 bytes are written as zeros.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `pending` of this thread's cp.async groups are in
+// flight (0 or 1 here: the instruction takes an immediate).
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  if (pending <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from global to shared memory; completion is counted on the barrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Bulk copy from shared to global memory, in the thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit_group() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kPending bulk groups still read shared memory.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(kPending)
+               : "memory");
+}
+
+// Waits until every bulk group has completed its writes.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ---- registers ----

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .flash_attention import flash_attention
-from .gc_compact import gather_page_blocks
+from .gc_compact import gather_page_units
 from .paged_attention import paged_attention
 from .ssd_scan import ssd_scan
 
@@ -79,6 +79,30 @@ def compact_plan(valid: np.ndarray, block_pages: int
     return (np.asarray(blocks, np.int32), np.asarray(tail, np.int32), runs)
 
 
+def compact_units(valid, block_pages: int
+                  ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """The copy plan of one compaction as one table of units.
+
+    Returns (units, new_index, dma_count): ``units`` (M, 3) int32 rows of
+    (src page, dst page, n pages), the aligned blocks of ``compact_plan``
+    first, then its single-page tails, at consecutive destinations from
+    page 0; ``new_index[i]`` the destination of old page i (−1 if dropped);
+    ``dma_count`` the copies per plane (blocks + tails).
+    """
+    valid_np = np.asarray(valid, bool)
+    blocks, tail, _ = compact_plan(valid_np, block_pages)
+    src = np.concatenate([blocks.astype(np.int64) * block_pages,
+                          tail.astype(np.int64)])
+    n = np.concatenate([np.full(len(blocks), block_pages, np.int64),
+                        np.ones(len(tail), np.int64)])
+    dst = np.cumsum(n) - n
+    units = np.stack([src, dst, n], axis=1).astype(np.int32)
+    new_index = np.full(len(valid_np), -1, np.int32)
+    for s_page, d_page, k in units:
+        new_index[s_page:s_page + k] = np.arange(d_page, d_page + k)
+    return units, new_index, len(units)
+
+
 def compact_pages(pool, valid, block_pages: int = 4, out=None):
     """Compact live pages to the front of a pool, run-coalesced.
 
@@ -86,26 +110,16 @@ def compact_pages(pool, valid, block_pages: int = 4, out=None):
     plan.  Live pages land in plan order (aligned blocks, then single-page
     tails) at the front of ``out``; pages of ``out`` past the live count are
     left as they are (default ``out``: a zero pool, as the JAX package
-    returns).  Always issues the coalesced plan, whatever the device.
+    returns).  Always issues the coalesced plan, whatever the device: one
+    launch for the whole plan.
 
     Returns (out, new_index, dma_count) where ``new_index[i]`` (a host int32
     array) is the destination slot of old page i (−1 if dropped) and
     ``dma_count`` is the number of block copies per plane.
     """
-    valid_np = np.asarray(valid, bool)
-    blocks, tail, _ = compact_plan(valid_np, block_pages)
+    units, new_index, dmas = compact_units(valid, block_pages)
     if out is None:
         out = torch.zeros_like(pool)
-    if len(blocks):
-        gather_page_blocks(pool, blocks, block_pages, out)
-    if len(tail):
-        gather_page_blocks(pool, tail, 1, out,
-                           dst_page=len(blocks) * block_pages)
-    order = np.concatenate([
-        np.concatenate([np.arange(b * block_pages, (b + 1) * block_pages)
-                        for b in blocks]) if len(blocks) else
-        np.zeros((0,), np.int64),
-        tail.astype(np.int64)])
-    new_index = np.full(pool.shape[-3], -1, np.int32)
-    new_index[order] = np.arange(len(order), dtype=np.int32)
-    return out, new_index, len(blocks) + len(tail)
+    if len(units):
+        gather_page_units(pool, units, out)
+    return out, new_index, dmas

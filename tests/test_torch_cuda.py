@@ -82,7 +82,8 @@ def test_compact_pages_kernel_matches_plain(cuda, planes, ptotal, page, d,
     before = gc_compact.launches
     _, new_index, dmas = ops.compact_pages(pool, valid, blockp, out=out)
     torch.cuda.synchronize()
-    assert gc_compact.launches - before <= 2
+    # one launch for blocks and tails together, none where nothing is live
+    assert gc_compact.launches - before == int(valid.any())
     # the CPU run of the same plan (held against the JAX package's kernel
     # path by test_torch_kernels.py)
     want, want_index, want_dmas = ops.compact_pages(pool.cpu(), valid, blockp)
@@ -102,7 +103,181 @@ def test_serve_driver_runs_through_both_kernels(cuda):
         "completed=24/24 decode_steps=62 compaction_steps=12 "
         "compaction_dmas=360 alloc_failures=0")
     assert pa.launches == 62
-    assert 0 < gc_compact.launches <= 24
+    # one launch per compaction: each of the 12 moves a page
+    assert gc_compact.launches == 12
+
+
+def _split_inputs(rng, cuda, b, h, hkv, d, page, n_pages, lengths, q_dtype,
+                  kv_dtype, p_total=None):
+    """Rows mapped to distinct random pages up to their length, the rest of
+    each table unmapped."""
+    p_total = p_total or b * n_pages
+    q = torch.from_numpy(rng.normal(size=(b, h, d)).astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.normal(size=(p_total, page, hkv, d))
+                               .astype(np.float32)) for _ in range(2))
+    pages = rng.permutation(p_total)[:b * n_pages].reshape(b, n_pages)
+    used = -(-np.asarray(lengths) // page)
+    pt = np.where(np.arange(n_pages)[None] < used[:, None], pages, -1)
+    return [q.to(cuda, q_dtype), kp.to(cuda, kv_dtype), vp.to(cuda, kv_dtype),
+            torch.from_numpy(pt.astype(np.int32)).to(cuda),
+            torch.from_numpy(np.asarray(lengths, np.int32)).to(cuda)]
+
+
+def _k1_kernels_per_call(args):
+    from torch.profiler import ProfilerActivity, profile
+    pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pa.paged_attention(*args)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type.name == "CUDA" and "paged_attention" in e.name)
+
+
+# The long-context shapes of chip_smoke.py: L-MHA (olmo-1b widths, lengths
+# 1024-4096) and L-GQA (starcoder2-3b's 24 heads over 2, 4096 each), page
+# 16, f32 q over a bf16 pool.  Tolerance 2e-3: f32 arithmetic on both
+# sides, sums in different orders.
+@pytest.mark.parametrize("b,h,hkv,lo", [(8, 16, 16, 1024), (4, 24, 2, 4096)])
+def test_paged_attention_kernel_long_context(cuda, b, h, hkv, lo):
+    rng = np.random.default_rng(h + hkv)
+    lengths = rng.integers(lo, 4097, size=b)
+    args = _split_inputs(rng, cuda, b, h, hkv, 128, 16, 256, lengths,
+                         torch.float32, torch.bfloat16)
+    before = pa.launches
+    out = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    torch.testing.assert_close(out, ref.paged_attention_ref(*args),
+                               atol=2e-3, rtol=2e-3)
+    assert _k1_kernels_per_call(args) == 1
+
+
+def _check_split_edges(cuda, b, h, hkv, d, page, n_pages, q_dtype, kv_dtype,
+                       seed):
+    """Split edges, with the split the wrapper plans (several splits a row):
+    a length ending exactly on a split boundary, one token past it, one
+    inside the first split, an unmapped page inside a later split, a split
+    whose pages are all unmapped, and an empty row.  Tolerance as in
+    test_paged_attention_kernel_matches_plain: 2e-3 for f32 q, 3e-2 for
+    bf16 q.  Returns the plan."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pps, splits = pa.plan_splits(n_pages, page, b, hkv, sms)
+    assert splits >= 3
+    edge = pps * page
+    lengths = [edge, n_pages * page, edge + 1, 5, 0][:b]
+    rng = np.random.default_rng(seed)
+    args = _split_inputs(rng, cuda, len(lengths), h, hkv, d, page, n_pages,
+                         lengths, q_dtype, kv_dtype)
+    args[3][1, pps + 1] = -1                 # inside the second split
+    args[3][1, 2 * pps:3 * pps] = -1         # the third split: no valid slot
+    out = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    want = ref.paged_attention_ref(*args)
+    tol = 2e-3 if q_dtype == torch.float32 else 3e-2
+    assert out.dtype == q_dtype
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    if len(lengths) == 5:
+        assert torch.count_nonzero(out[4]) == 0
+    return pps, splits
+
+
+# g = 1, 5 (phi3-medium's 40 over 10) and 12 (starcoder2-3b's 24 over 2),
+# at every D the kernel takes and all four dtype pairs, so bf16 q goes
+# through the merge's store too.
+@pytest.mark.parametrize("h,hkv", [(16, 16), (40, 10), (24, 2)])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_paged_attention_kernel_split_edges(cuda, h, hkv, d, q_dtype,
+                                            kv_dtype):
+    _check_split_edges(cuda, 5, h, hkv, d, 16, 256, q_dtype, kv_dtype,
+                       h + d)
+
+
+# The shallower rings, which only large g * D takes: at D = 256 over an f32
+# pool, 3 stages fit up to g = 15, 2 up to g = 45 and 1 up to g = 76, the
+# most the kernel before the split-KV design took too.
+@pytest.mark.parametrize("g,stages", [(16, 2), (76, 1)])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_shallow_rings(cuda, g, stages, q_dtype):
+    b, hkv, d = 3, 1, 256
+    pps, splits = _check_split_edges(cuda, b, g * hkv, hkv, d, 16, 64,
+                                     q_dtype, torch.float32, g)
+    lib = pa._lib()
+    fits = [n for n in (3, 2, 1) if lib.paged_attention_smem_bytes(
+        g, d, 4, pps, splits, n) <= pa._MAX_SMEM]
+    assert fits[0] == stages
+
+
+def test_paged_attention_refuses_what_it_cannot_take(cuda):
+    rng = np.random.default_rng(3)
+
+    def args(h, hkv, d, q_dtype=torch.float32, kv_dtype=torch.float32):
+        return _split_inputs(rng, cuda, 1, h, hkv, d, 16, 4, [40], q_dtype,
+                             kv_dtype)
+
+    with pytest.raises(ValueError, match="shared memory"):
+        pa.paged_attention(*args(77, 1, 256))   # g = 77 at D = 256, f32 pool
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        pa.paged_attention(*args(4, 2, 264))    # D > 256
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        pa.paged_attention(*args(4, 2, 36))     # D % 8
+    with pytest.raises(TypeError, match="float32 or"):
+        pa.paged_attention(*args(4, 2, 64, torch.float16))
+
+
+def test_paged_attention_kernel_on_two_streams_at_once(cuda):
+    # Calls in flight on two streams at once, with several splits a row:
+    # each stream has arrival counters of its own, so no CTA merges the
+    # other stream's partials.
+    rng = np.random.default_rng(11)
+    inputs = [_split_inputs(rng, cuda, 4, 24, 2, 128, 16, 256,
+                            rng.integers(1, 4097, size=4), torch.float32,
+                            torch.bfloat16) for _ in range(2)]
+    wants = [ref.paged_attention_ref(*args) for args in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[i].append(pa.paged_attention(*inputs[i]))
+    torch.cuda.synchronize()
+    for got, want in zip(outs, wants):
+        for out in got:
+            torch.testing.assert_close(out, want, atol=2e-3, rtol=2e-3)
+
+
+def test_paged_attention_kernel_is_deterministic(cuda):
+    # Two calls in a row give the same bits: the merge runs in split order,
+    # and the arrival counters are back at 0 after each call.
+    rng = np.random.default_rng(5)
+    args = _split_inputs(rng, cuda, 4, 24, 2, 128, 16, 256,
+                         rng.integers(1, 4097, size=4), torch.float32,
+                         torch.bfloat16)
+    first = pa.paged_attention(*args)
+    second = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_gather_page_units_blocks_and_tails_in_one_launch(cuda):
+    rng = np.random.default_rng(9)
+    pool = torch.from_numpy(rng.normal(size=(6, 64, 4, 64))
+                            .astype(np.float32)).to(cuda, torch.bfloat16)
+    valid = rng.random(64) < 0.7
+    units, _, _ = ops.compact_units(valid, 4)
+    assert (units[:, 2] == 4).any() and (units[:, 2] == 1).any()
+    units[:, 1] += 3                          # a non-zero destination page
+    out = torch.full((6, 64, 4, 64), 5.0, device=cuda, dtype=torch.bfloat16)
+    want = gc_compact.gather_page_units(pool.cpu(), units, out.cpu())
+    before = gc_compact.launches
+    gc_compact.gather_page_units(pool, units, out)
+    torch.cuda.synchronize()
+    assert gc_compact.launches == before + 1
+    assert torch.equal(out.cpu(), want)
 
 
 # tolerance: 2e-3 for f32 (the SIMT kernel and the plain version's einsums

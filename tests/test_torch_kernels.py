@@ -21,7 +21,8 @@ from repro.models.ssm import ssd_chunked as j_ssd_chunked
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gc_compact import gather_page_blocks
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention import (
+    MAX_SPLIT_PAGES, MAX_SPLITS, paged_attention, plan_splits)
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -202,6 +203,60 @@ def test_gather_page_blocks_every_plane(block_pages, dst_page):
     kept = torch.ones(ptotal, dtype=torch.bool)
     kept[dst_page:dst_page + n] = False
     assert bool((out[:, kept] == 7.0).all())
+
+
+@pytest.mark.parametrize("ptotal,page,d,blockp", [
+    (32, 8, 16, 4), (64, 4, 8, 8), (16, 8, 32, 4), (48, 8, 16, 1),
+])
+def test_compact_units_match_jax_kernel_path(ptotal, page, d, blockp):
+    # The one-launch unit table gives the JAX kernel path's destination
+    # order, new_index and copy count.
+    rng = np.random.default_rng(ptotal + blockp)
+    pool = rng.normal(size=(ptotal, page, d)).astype(np.float32)
+    valid = rng.random(ptotal) < 0.6
+    jpacked, jnew, jdmas = jops.compact_pages(
+        jnp.asarray(pool), valid, block_pages=blockp, use_pallas=True,
+        interpret=True)
+    units, new_index, dmas = ops.compact_units(valid, blockp)
+    assert units.dtype == np.int32 and units.shape == (dmas, 3)
+    n_live = int(valid.sum())
+    packed = np.zeros_like(pool)
+    for src, dst, n in units:
+        packed[dst:dst + n] = pool[src:src + n]
+    np.testing.assert_array_equal(packed[:n_live],
+                                  np.asarray(jpacked)[:n_live])
+    np.testing.assert_array_equal(new_index, np.asarray(jnew))
+    assert dmas == jdmas
+    # destinations are consecutive from page 0: blocks, then tails
+    np.testing.assert_array_equal(units[:, 1],
+                                  np.cumsum(units[:, 2]) - units[:, 2])
+    assert list(units[:, 2]) == sorted(units[:, 2], reverse=True)
+
+
+# (n_pages, page_size, batch, hkv): the serve shape, L-MHA, L-GQA,
+# phi3-medium's 10 kv heads, and shapes around the split's floor and
+# ceiling.
+@pytest.mark.parametrize("n_pages,page,b,hkv", [
+    (12, 4, 4, 16), (256, 16, 8, 16), (256, 16, 4, 2), (256, 16, 5, 10),
+    (1, 16, 1, 1), (0, 16, 2, 2), (8192, 1, 1, 1), (33, 8, 1, 1),
+    (100000, 16, 1, 1),
+])
+def test_paged_attention_split_plan(n_pages, page, b, hkv):
+    pages, splits = plan_splits(n_pages, page, b, hkv, 132)
+    tokens = pages * page                     # a whole number of pages
+    assert pages >= 1 and splits >= 1
+    assert splits * pages >= n_pages          # the splits cover the context
+    assert (splits - 1) * pages < max(n_pages, 1)   # and no split is empty
+    assert tokens >= min(128, max(n_pages, 1) * page)
+    assert pages <= MAX_SPLIT_PAGES
+    if pages < MAX_SPLIT_PAGES:               # only the page cap exceeds it
+        assert splits <= MAX_SPLITS
+    if n_pages * page <= 128:
+        assert splits == 1
+    if (n_pages, page, b, hkv) == (12, 4, 4, 16):      # the serve shape
+        assert splits == 1
+    if (n_pages, page, b, hkv) == (256, 16, 4, 2):     # L-GQA
+        assert b * hkv * splits >= 132
 
 
 def _ssd_inputs(seed, b, s, h, p, n, dt_range=(0.1, 0.9), with_state=False):
