@@ -31,6 +31,15 @@ Phases, in order; any failure exits non-zero:
    4096, bf16) with the SSD-scan kernel (K4) in every layer; check O(1)-state
    decode against the K4 forward in f32 across a chunk boundary; profile one
    prefill by part.
+8. Train olmo-1b at full width (batch 2, seq 4096, bf16 compute, f32 params,
+   remat "full", chunked attention) for 4 steps of ``build_train_step``:
+   K3's forward twice a layer (forward and recompute) and its backward kernel
+   (K3-bwd) once a layer; profile one step by part; check one f32 step of
+   the chunked path (K3 and K3-bwd) against the naive one (einsum and
+   autograd) at full width and 2 layers; run the train driver at SMOKE size
+   and with the full config.  K3-bwd is held against its plain version in
+   phase 2, at olmo-1b's training shape, starcoder2-3b's GQA, phi3-mini's
+   D = 96 and a ragged f32 case, and timed beside SDPA's backward.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  There is no CPU fallback: with
@@ -500,6 +509,134 @@ def phase_flash_attention():
     return record
 
 
+def attention_bwd_flops_bytes(q, k):
+    """K3-bwd's least work: five products of the forward's size (S = Q Kᵀ,
+    dP = dO Vᵀ, dV = Pᵀ dO, dQ = dS K, dK = dSᵀ Q), each 2 b h d s(s+1)/2
+    flops under causal masking; and its bytes: q, k, v, o, dO and lse read
+    once, dq, dk and dv written once."""
+    b, s, h, d = q.shape
+    flops = 5 * 2 * b * h * d * s * (s + 1) // 2
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + b * h * s * 4
+    return flops, nbytes
+
+
+def phase_flash_attention_bwd():
+    """K3-bwd against its plain version (the explicit formulas in f32) on
+    the same out and lse, at the training shapes; two calls must give the
+    same bits.  The olmo-1b case is timed beside the plain version and
+    SDPA's backward; returns its record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator("cuda").manual_seed(SEED + 4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # Tolerance, of the largest of dq, dk and dv.  f32: kernel and plain
+    # version take every product in f32 from the same values and sum in
+    # other orders, ~1e-6 (held to 1e-4).  bf16: outputs rounded to bf16
+    # (2^-9 relative), and at D = 64, 96 and 128 the kernel rounds P and dS
+    # to bf16 before their products on the tensor cores, as the forward
+    # rounds P (held to 1e-2).
+    # (label, B, S, H, Hkv, D, dtype, causal, tol)
+    cases = [
+        ("olmo-1b training", *PREFILL, 16, 16, 128, bf16, True, 1e-2),
+        ("starcoder2-3b GQA", 1, 2048, 24, 2, 128, bf16, True, 1e-2),
+        ("phi3-mini D=96", 1, 2048, 32, 32, 96, bf16, True, 1e-2),
+        ("ragged f32 causal", 1, 200, 8, 2, 64, f32, True, 1e-4),
+        ("ragged f32 full", 1, 200, 8, 2, 64, f32, False, 1e-4),
+    ]
+    record = None
+    for label, b, s, h, hkv, d, dt, causal, tol in cases:
+        q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
+                         .to(dt) for shape in [(b, s, h, d), (b, s, hkv, d),
+                                               (b, s, hkv, d), (b, s, h, d)])
+        out, lse = fa._forward(q, k, v, causal, True)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal)
+        scale = max(float(w.float().abs().max()) for w in want)
+        errs = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.dtype != dt or g.shape != w.shape:
+                fail(f"flash_attention_bwd {label}: {name} is "
+                     f"{g.dtype}{tuple(g.shape)}")
+            if not bool(torch.isfinite(g).all()):
+                fail(f"flash_attention_bwd {label}: non-finite {name}")
+            errs[name] = float((g.float() - w.float()).abs().max())
+            if errs[name] > tol * scale:
+                fail(f"flash_attention_bwd {label}: {name} max abs err "
+                     f"{errs[name]:.3g} > {tol} x {scale:.3g}")
+        del want
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+        same = all(torch.equal(g, g2) for g, g2 in zip(got, again))
+        print(f"[K3 bwd] {label} (B,S,H,Hkv,D)=({b},{s},{h},{hkv},{d}) {dt} "
+              f"causal={causal}: max_abs_err "
+              + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+              + f" (tol {tol} x {scale:.3g}); two calls bit-identical: "
+              f"{same}", flush=True)
+        if not same:
+            fail(f"flash_attention_bwd {label}: two calls differ")
+        del got, again
+        if record is not None:
+            continue
+        ms = device_ms("K3-bwd kernel", lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, dout, causal), iters=3)
+        plain_ms = device_ms("K3-bwd plain", lambda: ref.flash_attention_bwd_ref(
+            q, k, v, out, lse, dout, causal), iters=2)
+        # SDPA's backward alone, a yardstick: its graph is built once, and
+        # each timed call takes the gradients of the same output again.
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=h != hkv)
+        dot = dout.transpose(1, 2)
+        library_ms = device_ms("K3-bwd SDPA backward", lambda: torch.autograd
+                               .grad(o, (qt, kt, vt), dot,
+                                     retain_graph=True), iters=10)
+        del o, qt, kt, vt
+        flops, nbytes = attention_bwd_flops_bytes(q, k)
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = flops / BF16_FLOPS * 1e3
+        record = dict(
+            name="flash_attention_bwd", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/models/modules.py:207",
+            max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+            bound_ms=max(byte_ms, op_ms),
+            bound_by="bytes" if byte_ms >= op_ms else "operations",
+            library_ms=library_ms)
+        print(f"[K3 bwd] {label}: kernel {ms:.4f} ms at "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, plain {plain_ms:.4f} ms, "
+              f"SDPA backward {library_ms:.4f} ms at "
+              f"{flops / library_ms / 1e9:.1f} TFLOP/s; {nbytes} bytes, "
+              f"{flops} flops -> bound {record['bound_ms']:.6f} ms "
+              f"({record['bound_by']}); kernel at "
+              f"{ms / record['bound_ms']:.1f}x its bound", flush=True)
+        bwd_launch_times(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, dout, causal))
+    return record
+
+
+def bwd_launch_times(call, calls: int = 3):
+    """Device time of each of K3-bwd's three launches (delta, dk/dv, dq),
+    by kernel name from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    by_name = {name: v for name, v in device_time_by_name(prof).items()
+               if "flash_attention_bwd" in name}
+    total = sum(us for us, _ in by_name.values())
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        print(f"[K3 bwd]   {us / n / 1e3:.4f} ms a launch "
+              f"({100 * us / total:.1f}%) x{n // calls} a call: {name[:80]}",
+              flush=True)
+
+
 def ssd_flops_bytes(b, s, h, p, n, with_state):
     """The SSD scan's least work: whatever the chunking, each step's
     (x dt) outer B enters the (P, N) state and each step's y reads the state
@@ -630,6 +767,7 @@ def reset_counts():
     from repro_torch.kernels import (flash_attention, gc_compact,
                                      paged_attention, ssd_scan)
     flash_attention.launches = 0
+    flash_attention.bwd_launches = 0
     paged_attention.launches = 0
     gc_compact.launches = 0
     ssd_scan.launches = 0
@@ -777,6 +915,227 @@ def phase_prefill_starcoder():
         fail(f"prefill starcoder2-3b: flash_attention launched {launches} "
              f"times for {cfg.n_layers} layers")
     return launches
+
+
+TRAIN = (2, 4096)              # olmo-1b training (batch, seq)
+TRAIN_STEPS = 4
+
+
+def train_setup(cfg, b, s, lr=1e-3, seed=SEED):
+    """Params from seed, AdamW state and the train step, all on the card."""
+    from repro_torch.models import get_model
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   build_train_step, init_state)
+    tc = TrainConfig(adamw=AdamWConfig(lr=lr))
+    params = get_model(cfg).init(cfg, torch.Generator("cuda").manual_seed(seed),
+                                 "cuda")
+    step, _ = build_train_step(cfg, b, s, tc)
+    return params, init_state(params, tc.adamw), step
+
+
+def phase_train_olmo():
+    """The training path at full olmo-1b width: TRAIN_STEPS steps of
+    build_train_step with K3 (forward and remat recompute) and K3-bwd in
+    every layer, then one profiled step.  Returns (K3 launches, K3-bwd
+    launches) over the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import synthetic_batch
+    cfg = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked")
+    b, s = TRAIN
+    params, opt, step = train_setup(cfg, b, s)
+    batches = [synthetic_batch(cfg, i, b, s) for i in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # The path: counts set to 0 just before, read just after.
+    reset_counts()
+    times = []
+    for i in range(TRAIN_STEPS):
+        before = (fa.launches, fa.bwd_launches)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t = time.perf_counter()
+        e0.record()
+        params, opt, metrics = step(params, opt, batches[i])
+        e1.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        times.append(e0.elapsed_time(e1))
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        fwd, bwd = fa.launches - before[0], fa.bwd_launches - before[1]
+        print(f"[train olmo-1b] step {i}: loss={loss:.6f} "
+              f"grad_norm={norm:.6f}; {times[-1]:.3f} ms by CUDA events "
+              f"({wall:.3f} ms host wall); flash_attention launches={fwd} "
+              f"flash_attention_bwd calls={bwd}", flush=True)
+        if not (np.isfinite(loss) and np.isfinite(norm)):
+            fail(f"train olmo-1b: step {i} loss {loss} grad_norm {norm}")
+        if (fwd, bwd) != (2 * cfg.n_layers, cfg.n_layers):
+            fail(f"train olmo-1b: step {i} launched K3 {fwd} and K3-bwd "
+                 f"{bwd} times for {cfg.n_layers} layers under remat")
+    launches = (fa.launches, fa.bwd_launches)
+    print(f"[train olmo-1b] batch {b} seq {s}, bf16 compute, f32 params, "
+          f"remat {cfg.remat}: {TRAIN_STEPS} steps, "
+          f"{sum(times[1:]) / (len(times) - 1):.3f} ms a step over steps "
+          f"2-{TRAIN_STEPS}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"flash_attention={launches[0]} flash_attention_bwd={launches[1]}",
+          flush=True)
+    profile_train_step(step, params, opt, batches[TRAIN_STEPS], cfg.vocab)
+    return launches
+
+
+# (substrings of a kernel's name, part), first match wins
+TRAIN_PARTS = ((("flash_attention_bwd",), "K3-bwd (flash_attention_bwd)"),
+               (("flash_attention",), "K3 forward + recompute"),
+               (("nvjet", "gemm", "cutlass", "xmma"),
+                "matrix products (cuBLAS)"))
+
+
+def profile_train_step(step, params, opt, batch, vocab):
+    """Where one full-width training step spends device time, by kernel
+    name: K3-bwd, K3, the matrix products, and the rest (elementwise passes,
+    casts, reductions, the optimizer's update); then the AdamW update alone,
+    by CUDA events.  Printed only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import AdamWConfig, apply_updates
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = device_time_by_name(prof)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    parts = {}
+    for name, (us, _) in by_name.items():
+        part = next((p for keys, p in TRAIN_PARTS
+                     if any(key in name for key in keys)),
+                    "elementwise, casts, reductions, optimizer")
+        parts[part] = parts.get(part, 0.0) + us / 1e3
+    print(f"[profile] train step olmo-1b batch {TRAIN[0]} seq {TRAIN[1]}: "
+          f"wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * (1 - busy_ms / wall_ms):.1f}% idle) in "
+          f"{sum(n for _, n in by_name.values())} device activities",
+          flush=True)
+    for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  {part}")
+    print_ranked(by_name, ["flash_attention"])
+    grads = tree_unflatten(params, [torch.zeros_like(p)
+                                    for p in tree_leaves(params)])
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    apply_updates(params, grads, opt, AdamWConfig(lr=1e-3))
+    e1.record()
+    torch.cuda.synchronize()
+    print(f"[profile]   of which the AdamW update alone: "
+          f"{e0.elapsed_time(e1):.3f} ms by CUDA events", flush=True)
+
+
+def phase_train_f32_check():
+    """One f32 step's loss and gradients, chunked (K3 f32 forward and
+    K3-bwd f32) against naive (einsum and autograd), at full olmo-1b width
+    with the depth cut to 2 layers (time and memory), batch 1, seq 1024.
+    The loss is held to 1e-5 relative.  The gradients are held to the
+    spread of f32 itself: the random init gives scores with a std in the
+    hundreds (ROADMAP F7; the 2-layer cut raises the init's std by √8), so
+    the softmax is nearly one-hot, dS = P (dP − Δ) cancels, and two f32
+    computations of the same naive path, on the card and on the host CPU,
+    already differ by ‖Δg‖/‖g‖ of several 1e-2 at wq and wk.  Each leaf of
+    the chunked path must lie no farther from the card's naive gradient
+    than the host's naive gradient does (and within 1e-4 where that spread
+    is smaller)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.train import synthetic_batch
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    base = dataclasses.replace(get_config("olmo-1b"), n_layers=2,
+                               compute_dtype=torch.float32)
+    params = transformer.init(base, torch.Generator("cuda").manual_seed(SEED),
+                              "cuda")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_batch(base, 2, 1, 1024).items()}
+
+    def loss_and_grads(params, batch, impl):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss = transformer.loss_fn(tree_unflatten(params, leaves), batch,
+                                   cfg)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return float(loss.detach()), [g.cpu() for g in grads]
+
+    res = {}
+    for impl in ["naive", "chunked"]:
+        fa.launches = fa.bwd_launches = 0
+        res[impl] = loss_and_grads(params, batch, impl)
+        torch.cuda.synchronize()
+        want = ((2 * base.n_layers, base.n_layers) if impl == "chunked"
+                else (0, 0))
+        if (fa.launches, fa.bwd_launches) != want:
+            fail(f"train f32 check: {impl} launched K3 {fa.launches} and "
+                 f"K3-bwd {fa.bwd_launches} times")
+    t = time.perf_counter()
+    host = loss_and_grads(tree_unflatten(params, [p.cpu() for p in
+                                              tree_leaves(params)]),
+                          {k: v.cpu() for k, v in batch.items()}, "naive")
+    host_s = time.perf_counter() - t
+    (l0, g0), (l1, g1), (_, gh) = res["naive"], res["chunked"], host
+    loss_rel = abs(l1 - l0) / abs(l0)
+    rows, bad = [], []
+    for name, a, c, h in zip(_flat_names(params), g0, g1, gh):
+        norm = float(a.norm())
+        if norm == 0.0:                 # olmo's norm gains: not read
+            if c.any():
+                bad.append(name)
+            continue
+        rel, spread = float((c - a).norm()) / norm, float((h - a).norm()) / norm
+        rows.append(f"{name} {rel:.3g} (host {spread:.3g})")
+        if rel > max(spread, 1e-4):
+            bad.append(name)
+    print(f"[train f32 check] olmo-1b full width, 2 layers, batch 1 seq "
+          f"1024 f32, remat {base.remat}: loss naive {l0:.7f} chunked "
+          f"{l1:.7f} (rel {loss_rel:.3g}, tol 1e-5); ‖Δg‖/‖g‖ of chunked "
+          f"against naive on the card (host naive against it, {host_s:.1f} "
+          "s on the CPU): " + ", ".join(rows), flush=True)
+    if not np.isfinite(l1) or loss_rel > 1e-5 or bad:
+        fail(f"train f32 check: chunked and naive gradients differ at "
+             f"{bad or 'the loss'}")
+
+
+def _flat_names(tree, prefix=""):
+    out = []
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out += _flat_names(tree[k], f"{prefix}{k}/")
+        else:
+            out.append(prefix + k)
+    return out
+
+
+TRAIN_LINE = re.compile(r"step=(\d+) loss=(\d+\.\d{4}) dt=\d+ms( STRAGGLER)?")
+
+
+def run_train_driver(argv):
+    """The train driver in this process, on the card; its step lines must
+    have the JAX driver's format and finite losses."""
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    torch.cuda.synchronize()
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"[train driver {' '.join(argv)}] {line}", flush=True)
+    print(f"[train driver {' '.join(argv)}] main() wall "
+          f"{(time.perf_counter() - t) * 1e3:.3f} ms", flush=True)
+    steps = [TRAIN_LINE.fullmatch(line) for line in lines[:-1]]
+    if rc != 0 or not lines or lines[-1] != "training done" \
+            or not all(steps) or not all(np.isfinite(float(m.group(2)))
+                                         for m in steps):
+        fail(f"train driver {argv}: rc {rc}, unexpected output")
 
 
 def run_serve(argv, expect):
@@ -1059,7 +1418,8 @@ def main() -> int:
 
     phase_build()
     records = [phase_paged_attention(), phase_gc_compact(),
-               phase_flash_attention(), phase_ssd_scan()]
+               phase_flash_attention(), phase_flash_attention_bwd(),
+               phase_ssd_scan()]
     run_serve(SERVE_SMOKE, EXPECT_SMOKE)
 
     # The serve path: counts set to 0 just before, read just after.
@@ -1093,12 +1453,22 @@ def main() -> int:
     phase_prefill_starcoder()
     torch.cuda.empty_cache()
 
+    # The training path (its counts are set and read inside): K3 twice and
+    # K3-bwd once a layer a step; then the f32 check and the driver.
+    _, records[3]["launches"] = phase_train_olmo()
+    torch.cuda.empty_cache()
+    phase_train_f32_check()
+    run_train_driver(["--smoke", "--steps", "4", "--batch", "2",
+                      "--seq", "32"])
+    run_train_driver(["--steps", "3"])
+    torch.cuda.empty_cache()
+
     # The SSM path: prefill with K4 (its counts are set and read inside),
     # decode against the K4 forward in f32, and a profile.
     from repro_torch.models import ssm
     params = ssm.init(get_config("mamba2-370m"),
                       torch.Generator("cuda").manual_seed(SEED), "cuda")
-    records[3]["launches"] = phase_prefill_mamba(params)
+    records[4]["launches"] = phase_prefill_mamba(params)
     phase_decode_mamba(params)
     phase_profile_mamba(params)
 

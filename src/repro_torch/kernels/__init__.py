@@ -2,7 +2,8 @@
 their plain PyTorch versions:
 
 * flash_attention — causal or full GQA attention over a whole sequence
-  (prefill);
+  (prefill, training), with a backward kernel
+  (``csrc/flash_attention_bwd.cu``) behind a ``torch.autograd.Function``;
 * paged_attention — decode attention against the paged KV pool;
 * gc_compact — run-coalesced page-block gather (GC compaction of the pool);
 * ssd_scan — the Mamba-2 SSD chunked scan (SSM prefill).

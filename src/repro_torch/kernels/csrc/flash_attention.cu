@@ -39,6 +39,13 @@
 // through a per-warp shared tile to the P.V product.  Keys at or past S get
 // no weight (their staged rows are zeroed) and rows at or past S are not
 // stored.
+//
+// Both kernels write each row's log-sum-exp of the scaled scores, in f32
+// and natural log, to `lse` (batch, h, seq) when it is not null: the
+// backward (flash_attention_bwd.cu) rebuilds P from it.  Both keep the
+// running max m in base 2 (scores times sm_scale * log2 e) and the row sum
+// l of 2^(s - m), so lse = (m + log2 l) * ln 2.  A null `lse` (prefill,
+// serving) writes nothing more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +65,7 @@ constexpr int kRows = 4;               // query rows per lane
 constexpr int kCols = kBlockK / 8;     // keys per lane per tile
 constexpr int kPStride = kBlockK + 8;  // floats per row of the P tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T>
 __host__ __device__ constexpr int pad() { return 16 / (int)sizeof(T); }
@@ -97,8 +105,9 @@ size_t smem_bytes(int d) {
 template <typename T, int kDGroups>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int seq,
-                       int h, int hkv, int d, int causal, float scale_log2) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int seq, int h, int hkv, int d,
+                       int causal, float scale_log2) {
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
   const int head = blockIdx.y;
   const int b = blockIdx.z;
@@ -238,6 +247,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRows; ++i) {
     const int qrow = q0 + row0 + 4 * i;
     if (qrow >= seq) continue;
+    if (lse != nullptr && cl == 0)
+      lse[((size_t)b * h + head) * seq + qrow] = (m[i] + log2f(l[i])) * kLn2;
     const float inv = 1.f / l[i];  // > 0: key 0 is visible to every row
     T* o_row = out + ((size_t)b * seq + qrow) * q_row + (size_t)head * d;
 #pragma unroll
@@ -255,8 +266,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int kDGroups>
 int launch_groups(const void* q, const void* k, const void* v, void* out,
-                  int batch, int seq, int h, int hkv, int d, int causal,
-                  float sm_scale, cudaStream_t stream) {
+                  float* lse, int batch, int seq, int h, int hkv, int d,
+                  int causal, float sm_scale, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, kDGroups>;
   const size_t smem = smem_bytes<T>(d);
   if (smem > 48 * 1024) {
@@ -267,20 +278,20 @@ int launch_groups(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((seq + kBlockQ - 1) / kBlockQ, h, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), seq, h, hkv, d, causal,
-      sm_scale * kLog2e);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, seq, h, hkv, d,
+      causal, sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int seq, int h, int hkv, int d, int causal, float sm_scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int batch, int seq, int h, int hkv, int d, int causal,
+           float sm_scale, cudaStream_t stream) {
   if (d <= 64)
-    return launch_groups<T, 1>(q, k, v, out, batch, seq, h, hkv, d, causal, sm_scale, stream);
+    return launch_groups<T, 1>(q, k, v, out, lse, batch, seq, h, hkv, d, causal, sm_scale, stream);
   if (d <= 128)
-    return launch_groups<T, 2>(q, k, v, out, batch, seq, h, hkv, d, causal, sm_scale, stream);
-  return launch_groups<T, 4>(q, k, v, out, batch, seq, h, hkv, d, causal, sm_scale, stream);
+    return launch_groups<T, 2>(q, k, v, out, lse, batch, seq, h, hkv, d, causal, sm_scale, stream);
+  return launch_groups<T, 4>(q, k, v, out, lse, batch, seq, h, hkv, d, causal, sm_scale, stream);
 }
 
 // ---- bf16: warp-specialised tensor-core kernel ----
@@ -336,8 +347,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
-                          __nv_bfloat16* __restrict__ out, int seq, int h,
-                          int hkv, int d, int causal, float scale_log2) {
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int seq, int h, int hkv,
+                          int d, int causal, float scale_log2) {
   using T = Tile<kD>;
   constexpr int kN = T::kBlockN;
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -512,12 +524,16 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       hopper::mbar_arrive(&empty[s]);
     }
 
-    // Epilogue: the row sums over the row's 4 threads, O / l in bf16, rows
-    // at or past S and columns at or past D not stored.
+    // Epilogue: the row sums over the row's 4 threads, the log-sum-exp if
+    // asked, O / l in bf16, rows at or past S and columns at or past D not
+    // stored.
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (lse != nullptr && (lane & 3) == 0 && row0 + 8 * r < seq)
+        lse[((size_t)b * h + head) * seq + row0 + 8 * r] =
+            (m[r] + log2f(l[r])) * kLn2;
       l[r] = 1.f / l[r];  // > 0: key 0 is visible to every row
     }
     const size_t q_row = (size_t)h * d;
@@ -584,9 +600,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq,
 }
 
 template <int kD>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int seq, int h, int hkv, int d, int causal, float sm_scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int batch, int seq, int h, int hkv, int d, int causal,
+           float sm_scale, cudaStream_t stream) {
   auto kernel = flash_attention_tc_kernel<kD>;
   constexpr int smem = Tile<kD>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -599,8 +615,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((seq + kBlockM - 1) / kBlockM, h, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), seq, h, hkv, d, causal,
-      sm_scale * kLog2e);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, seq, h, hkv, d,
+      causal, sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -609,21 +625,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and out alike).
 // q, out: (batch, seq, h, d); k, v: (batch, seq, hkv, d); h % hkv == 0,
-// d % 8 == 0, d <= 256, every pointer 16-byte aligned.  Returns a
-// cudaError_t.
+// d % 8 == 0, d <= 256, every pointer 16-byte aligned.  lse: null, or
+// (batch, h, seq) f32 for each row's log-sum-exp.  Returns a cudaError_t.
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
-                               const void* v, void* out, int batch, int seq,
-                               int h, int hkv, int d, int causal,
-                               float sm_scale, void* stream) {
+                               const void* v, void* out, float* lse,
+                               int batch, int seq, int h, int hkv, int d,
+                               int causal, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || seq <= 0 || hkv <= 0 || h % hkv || d % 8 || d <= 0 || d > 256)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(q, k, v, out, batch, seq, h, hkv, d, causal, sm_scale, s);
+    return launch<float>(q, k, v, out, lse, batch, seq, h, hkv, d, causal, sm_scale, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (d <= 64)
-    return tc::launch<64>(q, k, v, out, batch, seq, h, hkv, d, causal, sm_scale, s);
+    return tc::launch<64>(q, k, v, out, lse, batch, seq, h, hkv, d, causal, sm_scale, s);
   if (d <= 128)
-    return tc::launch<128>(q, k, v, out, batch, seq, h, hkv, d, causal, sm_scale, s);
-  return tc::launch<256>(q, k, v, out, batch, seq, h, hkv, d, causal, sm_scale, s);
+    return tc::launch<128>(q, k, v, out, lse, batch, seq, h, hkv, d, causal, sm_scale, s);
+  return tc::launch<256>(q, k, v, out, lse, batch, seq, h, hkv, d, causal, sm_scale, s);
 }

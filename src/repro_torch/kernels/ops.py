@@ -19,7 +19,9 @@ from .ssd_scan import ssd_scan
 
 
 def attention(q, k, v, causal: bool = True):
-    """q: (B, S, H, D); k/v: (B, S, Hkv, D) → (B, S, H, D)."""
+    """q: (B, S, H, D); k/v: (B, S, Hkv, D) → (B, S, H, D).  Where a
+    gradient is wanted it goes through ``FlashAttention`` (the forward and
+    backward kernels on the card)."""
     return flash_attention(q, k, v, causal=causal)
 
 

@@ -13,22 +13,67 @@ from typing import Optional, Tuple
 import torch
 
 
-def flash_attention_ref(q, k, v, causal: bool = True):
+def _causal_mask(s: int, device):
+    return torch.ones((s, s), dtype=torch.bool, device=device).tril()
+
+
+def flash_attention_ref(q, k, v, causal: bool = True,
+                        return_lse: bool = False):
     """q: (B, S, H, D); k/v: (B, S, Hkv, D) with H % Hkv == 0.
     Returns (B, S, H, D) in q's dtype; query head h reads KV head
     h // (H // Hkv).  The softmax weights are rounded to q's dtype before
-    the product with V, as the JAX reference does."""
+    the product with V, as the JAX reference does.  With ``return_lse``,
+    returns (out, lse): lse (B, H, S) is each row's log-sum-exp of the
+    scaled scores, taken in f32 from f32 products of the inputs (as the
+    kernel takes them, whatever the inputs' dtype)."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     g = h // hkv
     qg = q.reshape(b, s, hkv, g, d)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k) / math.sqrt(d)
     if causal:
-        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~mask, float("-inf"))
+        scores = scores.masked_fill(~_causal_mask(s, q.device), float("-inf"))
     w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", w, v)
-    return out.reshape(b, s, h, d)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v).reshape(b, s, h, d)
+    if not return_lse:
+        return out
+    if q.dtype != torch.float32:
+        scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                              k.float()) / math.sqrt(d)
+        if causal:
+            scores = scores.masked_fill(~_causal_mask(s, q.device),
+                                        float("-inf"))
+    return out, torch.logsumexp(scores, dim=-1).reshape(b, h, s)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, causal: bool = True):
+    """The gradients (dq, dk, dv) of ``flash_attention_ref`` by the explicit
+    formulas, in f32 from the inputs' values: P = exp(S·scale − lse),
+    dV = Pᵀ dO, dP = dO Vᵀ, Δ = rowsum(dO ⊙ O), dS = P ⊙ (dP − Δ),
+    dQ = dS K·scale, dK = dSᵀ Q·scale; dk and dv are summed over the g
+    query heads of each KV head.  q/out/dout: (B, S, H, D); k/v:
+    (B, S, Hkv, D); lse: (B, H, S) f32.  Returns them in the inputs'
+    dtypes."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, s, hkv, g, d)
+    dog = dout.float().reshape(b, s, hkv, g, d)
+    kf, vf = k.float(), v.float()
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
+    if causal:
+        scores = scores.masked_fill(~_causal_mask(s, q.device), float("-inf"))
+    p = torch.exp(scores - lse.float().reshape(b, hkv, g, s, 1))
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dog)
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, vf)
+    delta = (dout.float() * out.float()).sum(-1)              # (B, S, H)
+    delta = delta.reshape(b, s, hkv, g).permute(0, 2, 3, 1)    # (B,Hkv,g,S)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg) * scale
+    return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def paged_attention_ref(q, k_pool, v_pool, page_table, lengths):

@@ -60,10 +60,16 @@ def stack_specs(layer: Params, n: int) -> Params:
     return {k: stack_specs(v, n) for k, v in layer.items()}
 
 
-def layer_params(layers: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked param tree (views, no copy)."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in layers.items()}
+def unstack_layers(layers: Params) -> list:
+    """Every layer of a stacked param tree, as views (no copy) from one
+    ``unbind`` a leaf.  Under autograd each leaf's layer gradients are then
+    stacked once; indexing layer by layer would build a zero-padded
+    gradient of the whole stack for every layer and add them all up."""
+    if not isinstance(layers, dict):
+        return list(layers.unbind(0))
+    parts = {k: unstack_layers(v) for k, v in layers.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: part[i] for k, part in parts.items()} for i in range(n)]
 
 
 def unembed(params: Params, x, cfg):

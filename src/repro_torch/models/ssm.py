@@ -6,7 +6,9 @@ hand-written ``ssd_scan`` kernel for a CUDA tensor, its plain chunked
 version (``kernels.ref.ssd_chunked_ref``) for a CPU tensor.  Decode keeps a
 (B, H, P, N) SSM state and a rolling depthwise-conv window per layer and
 runs plain PyTorch, as the JAX package runs plain jnp there.  Stacked layers
-are walked by a Python loop; ``cfg.remat`` has no meaning here.
+are walked by a Python loop.  ``cfg.remat`` is not read yet: training runs
+on CPU tensors only (autograd through the plain chunked scan), since the
+kernel has no backward; remat comes with that backward.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ from ..device import resolve_device
 from ..kernels import ops
 from ..kernels.ref import ssd_chunked_ref
 from .config import ModelConfig
-from .modules import (ParamSpec, cross_entropy, layer_params, materialize,
-                      norm, rmsnorm, stack_specs, unembed)
+from .modules import (ParamSpec, cross_entropy, materialize, norm, rmsnorm,
+                      stack_specs, unembed, unstack_layers)
 
 Params = Dict[str, Any]
 D_CONV = 4
@@ -148,8 +150,8 @@ def forward(params: Params, batch: Dict, cfg: ModelConfig):
     not read).  Returns logits (B,S,V) in the compute dtype."""
     # Rows first, then the cast: the same values as casting the table.
     x = params["embed"][batch["tokens"]].to(cfg.compute_dtype)
-    for i in range(cfg.n_layers):
-        x = ssd_layer(layer_params(params["layers"], i), x, cfg)
+    for lp in unstack_layers(params["layers"]):
+        x = ssd_layer(lp, x, cfg)
     return unembed(params, x, cfg)
 
 
@@ -177,9 +179,9 @@ def decode_step(params: Params, cache, lengths, tokens, cfg: ModelConfig):
     package returns new arrays).  ``lengths`` is not read: the state
     carries the position."""
     x = params["embed"][tokens].to(cfg.compute_dtype)        # (B,1,D)
-    for i in range(cfg.n_layers):
-        x, conv, ssm = ssd_decode_step(layer_params(params["layers"], i), x,
-                                       cache["conv"][i], cache["ssm"][i], cfg)
+    for i, lp in enumerate(unstack_layers(params["layers"])):
+        x, conv, ssm = ssd_decode_step(lp, x, cache["conv"][i],
+                                       cache["ssm"][i], cfg)
         cache["conv"][i].copy_(conv)
         cache["ssm"][i].copy_(ssm)
     return unembed(params, x, cfg), cache

@@ -2,10 +2,13 @@
 dense-cache decode.
 
 Layers are stacked (a leading ``n_layers`` axis on every layer parameter),
-as in the JAX package, and the forward pass walks them with a Python loop.
-``cfg.remat`` and ``cfg.scan_layers`` have no meaning here: the loop is
-eager and nothing is rematerialised.  Covers the dense family; the frame
-frontend (audio, VLM) and M-RoPE come with their slices.
+as in the JAX package, and the forward pass walks them with a Python loop
+(``cfg.scan_layers`` has no meaning here).  With ``cfg.remat == "full"``
+and grad enabled, each layer runs under non-reentrant
+``torch.utils.checkpoint``, as the JAX forward wraps it in
+``jax.checkpoint``: the backward pass runs it again; under ``no_grad`` the
+loop is unchanged.  Covers the dense family; the frame frontend (audio,
+VLM) and M-RoPE come with their slices.
 """
 
 from __future__ import annotations
@@ -13,12 +16,14 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .config import ModelConfig
 from .modules import (ParamSpec, _einsum, apply_rope, attention_specs,
                       cross_entropy, ffn, ffn_specs, gqa_attention,
-                      layer_params, materialize, norm, stack_specs, unembed)
+                      materialize, norm, stack_specs, unembed,
+                      unstack_layers)
 
 Params = Dict[str, Any]
 
@@ -69,9 +74,15 @@ def forward(params: Params, batch: Dict, cfg: ModelConfig):
     device.  Returns logits (B,S,V) in the compute dtype."""
     x = _embed_inputs(params, cfg, batch)
     positions = batch["positions"]
-    for i in range(cfg.n_layers):
-        x = _layer(cfg, x, layer_params(params["layers"], i), positions,
-                   cfg.causal)
+    remat = torch.is_grad_enabled() and cfg.remat != "none"
+    if remat and cfg.remat != "full":
+        raise NotImplementedError(f"remat={cfg.remat!r} is not yet ported")
+    for lp in unstack_layers(params["layers"]):
+        if remat:
+            x = checkpoint(_layer, cfg, x, lp, positions, cfg.causal,
+                           use_reentrant=False)
+        else:
+            x = _layer(cfg, x, lp, positions, cfg.causal)
     return unembed(params, x, cfg)
 
 
@@ -107,8 +118,7 @@ def decode_step(params: Params, cache, lengths, tokens, cfg: ModelConfig
     positions = lengths[:, None]                               # (B,1)
     kv_pos = torch.arange(max_seq, device=tokens.device)[None, :]
     kv_pos = torch.where(kv_pos <= lengths[:, None], kv_pos, -1)  # (B,S)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+    for i, lp in enumerate(unstack_layers(params["layers"])):
         xn = norm(x, lp["attn_norm"], cfg)
         # new k/v for this token: f32 weights against the compute-dtype
         # activations, promoted to f32 as JAX promotes them

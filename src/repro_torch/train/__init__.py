@@ -1,7 +1,11 @@
-"""Training substrate, so far the data pipeline and the prefill/decode step
-builders; the train step and the optimizer come with the training slice."""
+"""Training substrate: AdamW, the train/prefill/decode step builders and
+the data pipeline."""
 
 from .data import synthetic_batch
-from .step import build_decode_step, build_prefill_step
+from .optimizer import AdamWConfig, apply_updates, init_state
+from .step import (TrainConfig, build_decode_step, build_prefill_step,
+                   build_train_step)
 
-__all__ = ["synthetic_batch", "build_decode_step", "build_prefill_step"]
+__all__ = ["AdamWConfig", "apply_updates", "init_state", "TrainConfig",
+           "build_decode_step", "build_prefill_step", "build_train_step",
+           "synthetic_batch"]

@@ -1,16 +1,20 @@
-"""Prefill and decode step builders, for one card.
+"""Train, prefill and decode step builders, for one card.
 
 Each builder returns the step function and its inputs as ``device="meta"``
 tensors (shapes and dtypes, no storage), as the JAX builders return
 abstract ``ShapeDtypeStruct``s.  There is no mesh and no sharding: the
 builder's ``device`` is where the step puts the batch, lengths and tokens
-it is given (numpy arrays or tensors); params and cache must already be
-there.  ``build_train_step`` comes with the training slice.
+it is given (numpy arrays or tensors); params, optimizer state and cache
+must already be there.  The train step takes its gradients with autograd
+in place of ``jax.value_and_grad``, accumulates microbatches with a Python
+loop in place of ``lax.scan``, and updates params and moments in place
+(``optimizer.apply_updates``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional
 
 import torch
 
@@ -18,8 +22,17 @@ from ..device import resolve_device
 from ..models import get_model
 from ..models.config import ModelConfig
 from ..models.modules import ParamSpec
+from .optimizer import (AdamWConfig, apply_updates, init_state,
+                        tree_leaves, tree_unflatten)
 
 META = torch.device("meta")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    microbatches: int = 1
+    adamw: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
+    grad_compression: bool = False   # int8 DP all-reduce: not yet ported
 
 
 def _meta_params(tree, dtype):
@@ -42,6 +55,59 @@ def make_batch_abstract(cfg: ModelConfig, global_batch: int, seq: int
                                      device=META)
     batch["targets"] = torch.empty((b, s), dtype=torch.int32, device=META)
     return batch
+
+
+def build_train_step(cfg: ModelConfig, global_batch: int, seq: int,
+                     tc: Optional[TrainConfig] = None, device="cuda"):
+    """Returns (train_step, (params, opt_state, batch) as meta tensors);
+    ``train_step(params, opt_state, batch)`` returns (params, opt_state,
+    {"loss", "grad_norm"}), both f32 scalars on the device, params and
+    moments updated in place.  With ``tc.microbatches`` = m > 1 the batch is
+    split as the JAX step splits it (reshaped to (m, B/m, ...)), the f32
+    gradients and the losses of the m parts are summed, then divided by m.
+    ``grad_norm`` is sqrt(Σ g²) in f32 over every leaf."""
+    tc = tc or TrainConfig()
+    if tc.grad_compression:
+        raise NotImplementedError(
+            "grad_compression (the int8 all-reduce of parallel/) is not yet "
+            "ported")
+    dev = resolve_device(device)
+    model = get_model(cfg)
+    params_abs = _meta_params(model.specs(cfg), cfg.param_dtype)
+    opt_abs = init_state(params_abs, tc.adamw)
+    batch_abs = make_batch_abstract(cfg, global_batch, seq)
+    m = tc.microbatches
+
+    def value_and_grad(params, batch):
+        # A leaf the loss does not read (olmo's norm gains: its LayerNorm
+        # has none) gets a zero gradient, as under jax.value_and_grad.
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss = model.loss_fn(tree_unflatten(params, leaves), batch, cfg)
+        return loss.detach(), torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True)
+
+    def train_step(params, opt_state, batch):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        if m > 1:
+            acc, loss = None, torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(m):
+                part = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
+                        for k, v in batch.items()}
+                part_loss, g = value_and_grad(params, part)
+                g = [x.float() for x in g]
+                acc = g if acc is None else [a.add_(x) for a, x in zip(acc, g)]
+                loss = loss + part_loss
+            grads = [a / m for a in acc]
+            loss = loss / m
+        else:
+            loss, grads = value_and_grad(params, batch)
+        grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                   for g in grads))
+        params, opt_state = apply_updates(
+            params, tree_unflatten(params, grads), opt_state, tc.adamw)
+        return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
+
+    return train_step, (params_abs, opt_abs, batch_abs)
 
 
 def build_prefill_step(cfg: ModelConfig, global_batch: int, seq: int,

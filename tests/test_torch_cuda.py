@@ -341,10 +341,15 @@ def test_flash_attention_bf16_kernel_cases(cuda, b, s, h, hkv, d, q_scale,
 def test_flash_attention_refuses_what_it_cannot_take(cuda):
     q = torch.randn((1, 64, 4, 64), device=cuda)
     k = torch.randn((1, 64, 2, 64), device=cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fa.flash_attention(q.clone().requires_grad_(), k, k)
-    with torch.no_grad():     # no graph to cut off: runs
-        fa.flash_attention(q.clone().requires_grad_(), k, k)
+    # an input that needs a gradient goes through the backward kernel
+    before = (fa.launches, fa.bwd_launches)
+    out = fa.flash_attention(q.clone().requires_grad_(), k, k)
+    assert out.requires_grad
+    out.sum().backward()
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():     # no graph: the forward kernel alone
+        assert not fa.flash_attention(q.clone().requires_grad_(), k,
+                                      k).requires_grad
     with pytest.raises(TypeError):
         fa.flash_attention(q, k.bfloat16(), k.bfloat16())
     with pytest.raises(ValueError):
@@ -359,6 +364,119 @@ def test_flash_attention_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         fa.flash_attention(q, k[:, :, :1].expand(1, 64, 3, 64).contiguous(),
                            k[:, :, :1].expand(1, 64, 3, 64).contiguous())
+
+
+def _bwd_inputs(cuda, b, s, h, hkv, d, dtype, seed):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in [(b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)])
+    dout = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
+    return q, k, v, dout
+
+
+def _check_bwd(cuda, b, s, h, hkv, d, dtype, causal):
+    """K3's forward (with lse) and backward kernels against the plain
+    backward (f32 throughout) on the same out and lse.  Tolerance: f32
+    inputs take every product in f32 on both sides, summed in other orders,
+    so results agree to ~1e-6 of the largest gradient (held to 1e-4).  bf16
+    outputs are rounded to bf16 (2^-9 relative), and at D = 64, 96 and 128
+    the kernel also rounds P and dS to bf16 before their products on the
+    tensor cores; held to 1e-2 of the largest gradient.  The scale is the
+    largest of dq, dk and dv: at S = 1 dq is zero in exact arithmetic and
+    both sides give rounding noise."""
+    q, k, v, dout = _bwd_inputs(cuda, b, s, h, hkv, d, dtype, b * s + h + d)
+    out, lse = fa._forward(q, k, v, causal, True)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    scale = max(float(w.float().abs().max()) for w in want)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        torch.testing.assert_close(g.float(), w.float(), atol=tol * scale,
+                                   rtol=tol, msg=f"d{name}")
+    # two calls give the same bits
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    for g, g2 in zip(got, again):
+        assert torch.equal(g, g2)
+
+
+# The split edges of the 64-row tiles (S = 1, 63, 64, 65, 200) for MHA and
+# for groups of 2 and 12 query heads a KV head, at D = 64.
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (12, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_kernel_split_edges(cuda, s, h, hkv, dtype,
+                                                causal):
+    _check_bwd(cuda, 2, s, h, hkv, 64, dtype, causal)
+
+
+# Every head width class: D 16 and 40 (one 64-column group, part used), 96
+# (two groups, the second half used), 128, 192 and 256 (32-row tiles).
+@pytest.mark.parametrize("d", [16, 40, 96, 128, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_kernel_head_widths(cuda, d, dtype, causal):
+    _check_bwd(cuda, 1, 100, 4, 2, d, dtype, causal)
+
+
+# The [K3 bwd] shapes of chip_smoke.py: olmo-1b's training shape,
+# starcoder2-3b's GQA (24 heads over 2), phi3-mini's D = 96, and a ragged
+# f32 case.
+@pytest.mark.parametrize("b,s,h,hkv,d,dtype,causal", [
+    (2, 4096, 16, 16, 128, torch.bfloat16, True),
+    (1, 2048, 24, 2, 128, torch.bfloat16, True),
+    (1, 2048, 32, 32, 96, torch.bfloat16, True),
+    (1, 200, 8, 2, 64, torch.float32, True),
+    (1, 200, 8, 2, 64, torch.float32, False),
+])
+def test_flash_attention_bwd_kernel_model_shapes(cuda, b, s, h, hkv, d,
+                                                 dtype, causal):
+    _check_bwd(cuda, b, s, h, hkv, d, dtype, causal)
+
+
+# lse: the forward with a pointer writes each row's log-sum-exp (held to the
+# plain version's, taken in f32 from f32 products, at 1e-4: f32 sums in
+# other orders; the bf16 kernel's exponentials are ex2.approx) and leaves
+# its output bit for bit as the call without one.
+@pytest.mark.parametrize("b,s,h,hkv,d", [
+    (2, 200, 4, 2, 64), (1, 1, 4, 4, 128), (1, 300, 6, 3, 96),
+    (1, 130, 4, 4, 256), (2, 4096, 16, 16, 128),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_forward_lse(cuda, b, s, h, hkv, d, dtype, causal):
+    q, k, v, _ = _bwd_inputs(cuda, b, s, h, hkv, d, dtype, s + d)
+    plain_out, want = ref.flash_attention_ref(q, k, v, causal,
+                                              return_lse=True)
+    out, lse = fa._forward(q, k, v, causal, True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, fa._forward(q, k, v, causal, False)[0])
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, atol=1e-4 * float(want.abs().max()),
+                               rtol=1e-4)
+
+
+def test_flash_attention_gradient_through_autograd(cuda):
+    """ops.attention on inputs that need a gradient: one forward and one
+    backward call, and the gradients autograd gives are the backward
+    kernel's."""
+    q, k, v, dout = _bwd_inputs(cuda, 2, 130, 8, 2, 64, torch.float32, 5)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = (fa.launches, fa.bwd_launches)
+    out = ops.attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        o, lse = fa._forward(q, k, v, True, True)
+        want = fa.flash_attention_bwd(q, k, v, o, lse, dout, True)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "starcoder2-3b"])
@@ -548,3 +666,99 @@ def test_ssm_forward_goes_through_the_kernel(cuda):
                           tokens[:, t:t + 1])
         torch.testing.assert_close(lg[:, 0], full[:, t], atol=2e-3,
                                    rtol=2e-3)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_train_step_chunked_matches_naive_on_the_card(cuda, remat):
+    """build_train_step for olmo-1b SMOKE in f32, 3 steps: the chunked
+    branch (K3 and K3-bwd) against the naive one (einsum and autograd) from
+    the same init and batches.  f32, sums in other orders: the loss to 1e-5
+    relative at every step; the grad norm to 1e-4 at the first step, from
+    the same params.  After the first update the params differ (AdamW's
+    normalised step turns a sign flip of a near-zero gradient into 2·lr),
+    and the grad norm follows them: 1e-3 later (on the CPU the gap between
+    the two paths grows to a few 1e-4 by the third step).  Params
+    to 2·lr·steps at the worst element and 1e-5 at all but a 1e-3 share.
+    K3 runs once a layer a step (twice under remat) and K3-bwd once."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   build_train_step, init_state,
+                                   synthetic_batch)
+    from repro_torch.train.optimizer import tree_leaves
+    base = dataclasses.replace(get_config("olmo-1b", smoke=True),
+                               compute_dtype=torch.float32, remat=remat)
+    lr, steps = 1e-3, 3
+    runs = {}
+    for impl in ["naive", "chunked"]:
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        params = transformer.init(cfg, torch.Generator(cuda).manual_seed(0),
+                                  cuda)
+        tc = TrainConfig(adamw=AdamWConfig(lr=lr))
+        step, _ = build_train_step(cfg, 2, 64, tc)
+        opt = init_state(params, tc.adamw)
+        metrics = []
+        for i in range(steps):
+            fa.launches = fa.bwd_launches = 0
+            params, opt, m = step(params, opt, synthetic_batch(cfg, i, 2, 64))
+            torch.cuda.synchronize()
+            per_layer = (2 if remat == "full" else 1, 1)
+            want = ((cfg.n_layers * per_layer[0], cfg.n_layers * per_layer[1])
+                    if impl == "chunked" else (0, 0))
+            assert (fa.launches, fa.bwd_launches) == want
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[impl] = (metrics, params)
+    (m0, p0), (m1, p1) = runs["naive"], runs["chunked"]
+    for i, ((l0, n0), (l1, n1)) in enumerate(zip(m0, m1)):
+        assert abs(l1 - l0) <= 1e-5 * abs(l0)
+        assert abs(n1 - n0) <= (1e-4 if i == 0 else 1e-3) * n0
+    diffs = torch.cat([(a - b).abs().flatten()
+                       for a, b in zip(tree_leaves(p1), tree_leaves(p0))])
+    assert float(diffs.max()) <= 2 * lr * steps
+    assert float((diffs > 1e-5).float().mean()) <= 1e-3
+
+
+def test_train_step_bf16_chunked_runs_through_both_kernels(cuda):
+    """The bf16 training path of the main configuration at SMOKE size:
+    finite losses and the K3 / K3-bwd launch counts under remat."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.train import (TrainConfig, build_train_step,
+                                   init_state, synthetic_batch)
+    cfg = dataclasses.replace(get_config("olmo-1b", smoke=True),
+                              attn_impl="chunked", remat="full")
+    params = transformer.init(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    step, _ = build_train_step(cfg, 2, 200, TrainConfig())
+    opt = init_state(params, TrainConfig().adamw)
+    for i in range(2):
+        fa.launches = fa.bwd_launches = 0
+        params, opt, m = step(params, opt, synthetic_batch(cfg, i, 2, 200))
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.bwd_launches) == (2 * cfg.n_layers,
+                                                  cfg.n_layers)
+        assert np.isfinite(float(m["loss"])) and \
+            np.isfinite(float(m["grad_norm"]))
+
+
+def test_mamba2_train_step_raises_k4_no_backward(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.train import (TrainConfig, build_train_step,
+                                   init_state, synthetic_batch)
+    cfg = dataclasses.replace(get_config("mamba2-370m", smoke=True),
+                              compute_dtype=torch.float32)
+    params = ssm.init(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    step, _ = build_train_step(cfg, 2, 32, TrainConfig())
+    with pytest.raises(RuntimeError, match="no backward"):
+        step(params, init_state(params, TrainConfig().adamw),
+             synthetic_batch(cfg, 0, 2, 32))
+
+
+def test_train_driver_on_the_card(cuda):
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(["--smoke", "--steps", "3", "--batch", "2",
+                         "--seq", "32"])
+    lines = buf.getvalue().splitlines()
+    assert rc == 0 and lines[-1] == "training done" and len(lines) == 4

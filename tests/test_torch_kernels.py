@@ -19,7 +19,8 @@ from repro.kernels.paged_attention import paged_attention as j_paged
 from repro.kernels.ssd_scan import ssd_scan as j_ssd_scan
 from repro.models.ssm import ssd_chunked as j_ssd_chunked
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                  flash_attention_bwd)
 from repro_torch.kernels.gc_compact import gather_page_blocks
 from repro_torch.kernels.paged_attention import (
     MAX_SPLIT_PAGES, MAX_SPLITS, paged_attention, plan_splits)
@@ -119,6 +120,68 @@ def test_flash_attention_ref_matches_jax(b, s, h, hkv, d, dtype, causal):
     np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
 
 
+# K3's backward.  The plain version (the explicit formulas in f32) against
+# jax.vjp of the JAX reference and against torch.autograd through the
+# port's plain forward, in f32: only the order of the sums differs, so the
+# gradients agree to ~1e-6 of the largest one (held to 2e-5).
+@pytest.mark.parametrize("b,s,h,hkv,d", [
+    (2, 64, 4, 2, 64), (1, 77, 6, 3, 96), (1, 100, 8, 1, 64),
+    (2, 33, 4, 4, 96), (1, 1, 2, 1, 64),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_ref_matches_jax(b, s, h, hkv, d, causal):
+    import jax
+    rng = np.random.default_rng(7 * s + d)
+    arrays = [rng.normal(size=shape).astype(np.float32)
+              for shape in [(b, s, h, d), (b, s, hkv, d), (b, s, hkv, d),
+                            (b, s, h, d)]]
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = (
+        _both(x, torch.float32) for x in arrays)
+    _, vjp = jax.vjp(lambda q, k, v: jref.flash_attention_ref(
+        q, k, v, causal=causal), qj, kj, vj)
+    from_jax = vjp(doj)
+    out, lse = ref.flash_attention_ref(qt, kt, vt, causal, return_lse=True)
+    got = ref.flash_attention_bwd_ref(qt, kt, vt, out, lse, dot, causal)
+    leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    from_autograd = torch.autograd.grad(
+        ref.flash_attention_ref(*leaves, causal=causal), leaves, dot)
+    # and what the model's gradient runs on CPU tensors: this backward
+    through_ops = torch.autograd.grad(ops.attention(*leaves, causal=causal),
+                                      leaves, dot)
+    scale = max(float(np.abs(_np(g)).max()) for g in from_jax)
+    for i, name in enumerate("qkv"):
+        assert got[i].dtype == torch.float32 and got[i].shape == arrays[i].shape
+        assert torch.equal(through_ops[i], got[i]), name
+        for want in (from_jax[i], from_autograd[i]):
+            np.testing.assert_allclose(_np(got[i]), _np(want),
+                                       atol=2e-5 * scale, rtol=2e-5,
+                                       err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ref_lse(dtype, causal):
+    """lse is the log-sum-exp of each row's scaled scores (f64 here), taken
+    in f32 from f32 products whatever the inputs' dtype (1e-5 relative);
+    the output is the one without lse, bit for bit."""
+    rng = np.random.default_rng(11)
+    b, s, h, hkv, d = 2, 50, 6, 2, 32
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(dtype) for shape in [(b, s, h, d), (b, s, hkv, d),
+                                        (b, s, hkv, d)])
+    out, lse = ref.flash_attention_ref(q, k, v, causal, return_lse=True)
+    assert torch.equal(out, ref.flash_attention_ref(q, k, v, causal))
+    qg = q.double().reshape(b, s, hkv, h // hkv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.double()) / np.sqrt(d)
+    if causal:
+        scores = scores.masked_fill(~torch.ones((s, s), dtype=torch.bool)
+                                    .tril(), float("-inf"))
+    want = torch.logsumexp(scores, dim=-1).reshape(b, h, s)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    np.testing.assert_allclose(lse.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     # Only a CPU tensor runs the plain version; anything else must reach
     # the kernel or raise.
@@ -134,6 +197,11 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     q = torch.zeros((1, 8, 4, 16), device="meta")
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        flash_attention(q.requires_grad_(), q, q)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, q, q, q, torch.zeros((1, 4, 8), device="meta"),
+                            q)
     _, targs = _ssd_inputs(0, 1, 16, 2, 4, 8)
     with pytest.raises(ValueError):
         ssd_scan(*(t.to("meta") for t in targs), 8)

@@ -17,11 +17,12 @@ import torch
 from repro.configs import get_config as j_get_config
 from repro.models import get_model as j_get_model
 from repro_torch.configs import get_config
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import ssm, transformer
 from repro_torch.models.modules import ParamSpec, materialize
 from repro_torch.serving import PagedCacheConfig, PagedKVCache
-from repro_torch.train import build_decode_step, build_prefill_step
+from repro_torch.train import (build_decode_step, build_prefill_step,
+                               build_train_step)
 from repro_torch.weights import params_from_numpy
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -132,6 +133,11 @@ ENTRY_POINTS = {
         get_config("mamba2-370m", smoke=True), 1, 16),
     "build_decode_step mamba2": lambda: build_decode_step(
         get_config("mamba2-370m", smoke=True), 1, 16),
+    "build_train_step": lambda: build_train_step(
+        get_config("olmo-1b", smoke=True), 1, 8),
+    "build_train_step mamba2": lambda: build_train_step(
+        get_config("mamba2-370m", smoke=True), 1, 16),
+    "train.main": lambda: train.main(["--smoke", "--steps", "1"]),
 }
 
 
