@@ -126,15 +126,43 @@ def device_ms(label: str, fn, iters: int = 50) -> float:
     return e1.elapsed_time(e2) / iters
 
 
+def kernel_label(mangled: str) -> str:
+    """'flash_attention_bwd_dq_wgmma_kernel<128>' from a mangled name: the
+    first length-prefixed name that ends in _kernel, and its template's
+    integer and float arguments."""
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        start = m.start() + len(m.group(1))
+        name = mangled[start:start + int(m.group(1))]
+        if name.endswith("_kernel"):
+            args = re.match(r"I(.*?E)E", mangled[start + len(name):])
+            if args is None:
+                return name
+            parts = re.findall(r"Li(\d+)E|^(f)|(__nv_bfloat16)", args.group(1))
+            return name + "<" + ", ".join(
+                n or ("float" if f else "bf16") for n, f, _ in parts) + ">"
+    return mangled
+
+
 def phase_build():
+    """Builds every kernel; prints, per kernel, the registers ptxas gave it
+    and its spills, and any note ptxas made about wgmma."""
     from repro_torch.kernels import _build
     t = time.perf_counter()
     reports = _build.build_all()
     print(f"[build] {len(reports)} libraries built in "
           f"{time.perf_counter() - t:.1f}s into {_build.BUILD_DIR}")
     for name, log in reports.items():
+        label, spills = None, ""
         for line in log.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                label = kernel_label(entry.group(1))
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line and label is not None:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                print(f"[build] {name}: {label}: {regs} registers; {spills}")
+            elif "GMMA" in line or "serialized" in line:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] torch {torch.__version__} cuda {torch.version.cuda}")
     print(f"[build] {sh(_build.nvcc(), '--version').splitlines()[-1]}")
@@ -524,8 +552,9 @@ def attention_bwd_flops_bytes(q, k):
 def phase_flash_attention_bwd():
     """K3-bwd against its plain version (the explicit formulas in f32) on
     the same out and lse, at the training shapes; two calls must give the
-    same bits.  The olmo-1b case is timed beside the plain version and
-    SDPA's backward; returns its record."""
+    same bits.  Each bf16 case is timed beside SDPA's backward, with its
+    TFLOP/s, its share of the bound and each of its launches; the olmo-1b
+    case also beside the plain version, and returns its record."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -578,12 +607,10 @@ def phase_flash_attention_bwd():
         if not same:
             fail(f"flash_attention_bwd {label}: two calls differ")
         del got, again
-        if record is not None:
+        if dt != bf16:
             continue
-        ms = device_ms("K3-bwd kernel", lambda: fa.flash_attention_bwd(
-            q, k, v, out, lse, dout, causal), iters=3)
-        plain_ms = device_ms("K3-bwd plain", lambda: ref.flash_attention_bwd_ref(
-            q, k, v, out, lse, dout, causal), iters=2)
+        ms = device_ms(f"K3-bwd kernel {label}", lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, dout, causal), iters=5)
         # SDPA's backward alone, a yardstick: its graph is built once, and
         # each timed call takes the gradients of the same output again.
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
@@ -591,36 +618,42 @@ def phase_flash_attention_bwd():
         o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                            enable_gqa=h != hkv)
         dot = dout.transpose(1, 2)
-        library_ms = device_ms("K3-bwd SDPA backward", lambda: torch.autograd
-                               .grad(o, (qt, kt, vt), dot,
-                                     retain_graph=True), iters=10)
+        library_ms = device_ms(f"K3-bwd SDPA backward {label}",
+                               lambda: torch.autograd.grad(
+                                   o, (qt, kt, vt), dot, retain_graph=True),
+                               iters=10)
         del o, qt, kt, vt
         flops, nbytes = attention_bwd_flops_bytes(q, k)
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         op_ms = flops / BF16_FLOPS * 1e3
+        bound_ms = max(byte_ms, op_ms)
+        bound_by = "bytes" if byte_ms >= op_ms else "operations"
+        print(f"[K3 bwd] {label}: kernel {ms:.4f} ms at "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, SDPA backward "
+              f"{library_ms:.4f} ms at {flops / library_ms / 1e9:.1f} "
+              f"TFLOP/s; {nbytes} bytes, {flops} flops -> bound "
+              f"{bound_ms:.6f} ms ({bound_by}); kernel at "
+              f"{ms / bound_ms:.2f}x its bound", flush=True)
+        bwd_launch_times(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, dout, causal))
+        if record is not None:
+            continue
+        plain_ms = device_ms("K3-bwd plain", lambda: ref.flash_attention_bwd_ref(
+            q, k, v, out, lse, dout, causal), iters=2)
+        print(f"[K3 bwd] {label}: plain {plain_ms:.4f} ms", flush=True)
         record = dict(
             name="flash_attention_bwd", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             replaces="src/repro/models/modules.py:207",
             max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-            bound_ms=max(byte_ms, op_ms),
-            bound_by="bytes" if byte_ms >= op_ms else "operations",
-            library_ms=library_ms)
-        print(f"[K3 bwd] {label}: kernel {ms:.4f} ms at "
-              f"{flops / ms / 1e9:.1f} TFLOP/s, plain {plain_ms:.4f} ms, "
-              f"SDPA backward {library_ms:.4f} ms at "
-              f"{flops / library_ms / 1e9:.1f} TFLOP/s; {nbytes} bytes, "
-              f"{flops} flops -> bound {record['bound_ms']:.6f} ms "
-              f"({record['bound_by']}); kernel at "
-              f"{ms / record['bound_ms']:.1f}x its bound", flush=True)
-        bwd_launch_times(lambda: fa.flash_attention_bwd(
-            q, k, v, out, lse, dout, causal))
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     return record
 
 
 def bwd_launch_times(call, calls: int = 3):
-    """Device time of each of K3-bwd's three launches (delta, dk/dv, dq),
-    by kernel name from the profiler."""
+    """Device time of each of K3-bwd's launches (delta, dk/dv, dq, and the
+    sum of dk/dv partials where the group is split over CTAs), by kernel
+    name from the profiler."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()

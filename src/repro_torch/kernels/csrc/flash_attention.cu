@@ -326,20 +326,6 @@ struct Tile {
   static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + 64 + 1024;
 };
 
-template <int kN>
-__device__ __forceinline__ void wgmma_ss(float (&d)[kN / 2], uint64_t a,
-                                         uint64_t b, int scale_d) {
-  if constexpr (kN == 64) hopper::wgmma_ss_n64(d, a, b, scale_d);
-  else hopper::wgmma_ss_n128(d, a, b, scale_d);
-}
-
-template <int kN>
-__device__ __forceinline__ void wgmma_rs(float (&d)[kN / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (kN == 64) hopper::wgmma_rs_n64(d, a, b, 1);
-  else hopper::wgmma_rs_n128(d, a, b, 1);
-}
-
 // One CTA per (128-row q tile, q head, batch row): warpgroups 0 and 1
 // consume (64 q rows each), warpgroup 2 produces (one thread issues TMA).
 template <int kD>
@@ -443,13 +429,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
         const int p = kk / 4, c = (kk % 4) * 32;
-        wgmma_ss<kN>(sc,
+        hopper::wgmma_ss<kN>(sc,
                      hopper::sw128_desc(q_addr + p * T::kQPanel + c, 16, 1024),
                      hopper::sw128_desc(k_addr + p * T::kKVPanel + c, 16, 1024),
                      kk > 0);
       }
       hopper::wgmma_commit();
-      hopper::wgmma_wait_all();
+      hopper::wgmma_wait<0>();
       hopper::fence_regs(sc);
 
       // Mask only where a key can be past S or past the row (the diagonal
@@ -512,13 +498,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int kk = 0; kk < kN / 16; ++kk) {
 #pragma unroll
         for (int x = 0; x < T::kOHalves; ++x)
-          wgmma_rs<kD == 64 ? 64 : 128>(
+          hopper::wgmma_rs<kD == 64 ? 64 : 128>(
               o[x], pa[kk],
               hopper::sw128_desc(v_addr + x * 2 * T::kKVPanel + kk * 2048,
                                  T::kKVPanel, 1024));
       }
       hopper::wgmma_commit();
-      hopper::wgmma_wait_all();
+      hopper::wgmma_wait<0>();
 #pragma unroll
       for (int x = 0; x < T::kOHalves; ++x) hopper::fence_regs(o[x]);
       hopper::mbar_arrive(&empty[s]);
@@ -554,51 +540,6 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver the runtime has loaded (so the
-// library links against nothing but the runtime).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (batch, seq, heads, d) bf16 tensor as a 4-d map (d innermost) read in
-// boxes of 64 columns x `rows` tokens of one head; out-of-range columns and
-// tokens read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq,
-              int heads, int d, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
-                              (cuuint64_t)seq, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
-                                 (cuuint64_t)seq * heads * d * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int kD>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            int batch, int seq, int h, int hkv, int d, int causal,
@@ -609,9 +550,9 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, batch, seq, h, d, kBlockM) ||
-      !make_map(&tk, k, batch, seq, hkv, d, Tile<kD>::kBlockN) ||
-      !make_map(&tv, v, batch, seq, hkv, d, Tile<kD>::kBlockN))
+  if (!hopper::make_map(&tq, q, batch, seq, h, d, kBlockM) ||
+      !hopper::make_map(&tk, k, batch, seq, hkv, d, Tile<kD>::kBlockN) ||
+      !hopper::make_map(&tv, v, batch, seq, hkv, d, Tile<kD>::kBlockN))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((seq + kBlockM - 1) / kBlockM, h, batch);
   kernel<<<grid, kThreads, smem, stream>>>(

@@ -2,7 +2,8 @@
 // loads, cp.async with zero fill, 1-D bulk copies, shared-memory matrix
 // descriptors for 128-byte swizzled tiles,
 // register reallocation, and the four wgmma shapes the bf16 attention
-// kernel issues (bf16 inputs, f32 accumulators).
+// kernels issue (bf16 inputs, f32 accumulators); on the host, the TMA
+// tensor map of a (batch, seq, heads, d) bf16 tensor.
 //
 // Accumulator layout of wgmma.m64nNk16 (f32), for thread t of the
 // warpgroup: warp w = t / 32 owns rows 16 w .. 16 w + 15; register
@@ -15,6 +16,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -143,11 +145,19 @@ __device__ __forceinline__ void regs_dec() {
 }
 
 // Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma that owns them.
+// (or of A fragments) across the asynchronous wgmma that owns them.
 template <int kN>
 __device__ __forceinline__ void fence_regs(float (&r)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int kM, int kN>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[kM][kN]) {
+#pragma unroll
+  for (int i = 0; i < kM; ++i)
+#pragma unroll
+    for (int j = 0; j < kN; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
 }
 
 // ---- math ----
@@ -184,8 +194,11 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Waits until at most kPending committed wgmma groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending)
+               : "memory");
 }
 
 // D (+)= A B with A (64 x 16) and B (16 x N) both K-major in shared memory.
@@ -275,6 +288,69 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D (+)= A B, both K-major in shared memory, N = kN (64 or 128).
+template <int kN>
+__device__ __forceinline__ void wgmma_ss(float (&d)[kN / 2], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  if constexpr (kN == 64) wgmma_ss_n64(d, a, b, scale_d);
+  else wgmma_ss_n128(d, a, b, scale_d);
+}
+
+// D += A B, A in registers, B MN-major in shared memory, N = kN (64 or 128).
+template <int kN>
+__device__ __forceinline__ void wgmma_rs(float (&d)[kN / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (kN == 64) wgmma_rs_n64(d, a, b, 1);
+  else wgmma_rs_n128(d, a, b, 1);
+}
+
+// ---- host: TMA tensor maps ----
+
+// cuTensorMapEncodeTiled, from the driver the runtime has loaded (so a
+// library links against nothing but the runtime).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (batch, seq, heads, d) bf16 tensor as a 4-d map (d innermost) read in
+// boxes of 64 columns x `rows` tokens of one head, with 128-byte swizzle;
+// out-of-range columns and tokens read as zeros.
+inline bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq,
+                     int heads, int d, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)seq * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

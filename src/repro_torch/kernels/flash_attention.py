@@ -45,6 +45,9 @@ def _bwd_lib():
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        work = lib.flash_attention_bwd_workspace
+        work.argtypes = [ctypes.c_int] * 6
+        work.restype = ctypes.c_longlong
     return lib
 
 
@@ -120,11 +123,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    err = _bwd_lib().flash_attention_bwd(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    lib, dtype = _bwd_lib(), _DTYPE_CODES[q.dtype]
+    # Scratch: each row's delta, then any partial sums of dk and dv.
+    work = torch.empty(
+        (lib.flash_attention_bwd_workspace(dtype, b, s, h, hkv, d),),
+        dtype=torch.float32, device=q.device)
+    err = lib.flash_attention_bwd(
+        dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, s, h, hkv, d,
+        dk.data_ptr(), dv.data_ptr(), work.data_ptr(), b, s, h, hkv, d,
         int(causal), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     global bwd_launches

@@ -415,6 +415,36 @@ def test_flash_attention_bwd_kernel_split_edges(cuda, s, h, hkv, dtype,
     _check_bwd(cuda, 2, s, h, hkv, 64, dtype, causal)
 
 
+# The wgmma route (bf16 at D = 64, 96 and 128) at the edges of its tiles:
+# 64 query rows a dk/dv ring stage, 128 keys a dk/dv CTA, 128 rows a dq CTA
+# and 128 keys a dq ring stage; groups of 1, 2 and 12 query heads a KV
+# head (at batch 1 the two GQA groups are split over CTAs).
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 200, 4096])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (12, 1)])
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_wgmma_tile_edges(cuda, s, h, hkv, d, causal):
+    _check_bwd(cuda, 1, s, h, hkv, d, torch.bfloat16, causal)
+
+
+# Where the dk/dv kernel would give the card fewer CTAs than it has SMs,
+# a group's query heads are split over CTAs whose f32 partial sums a
+# fourth launch adds in split order; otherwise one CTA sums the group.
+# starcoder2-3b's 24 heads over 2 take the split; (2, 4096, 12 over 4)
+# gives 256 CTAs and sums each group of 3 in one.
+@pytest.mark.parametrize("b,s,h,hkv", [(1, 2048, 24, 2), (2, 4096, 12, 4),
+                                       (1, 200, 12, 1), (1, 129, 4, 4)])
+def test_flash_attention_bwd_splits_groups_only_where_ctas_are_few(
+        cuda, b, s, h, hkv):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ctas = (s + 127) // 128 * hkv * b
+    split = h > hkv and ctas < sms
+    work = fa._bwd_lib().flash_attention_bwd_workspace(1, b, s, h, hkv, 128)
+    delta = (b * h * s + 3) // 4 * 4
+    assert (work > delta) == split
+    _check_bwd(cuda, b, s, h, hkv, 128, torch.bfloat16, True)
+
+
 # Every head width class: D 16 and 40 (one 64-column group, part used), 96
 # (two groups, the second half used), 128, 192 and 256 (32-row tiles).
 @pytest.mark.parametrize("d", [16, 40, 96, 128, 192, 256])
