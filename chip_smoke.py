@@ -10,12 +10,15 @@ Phases, in order; any failure exits non-zero:
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes its paths give it (the serve driver's and the prefills' full
    widths, head_dim 96 for phi3-mini, a ragged f32 case for K3, mamba2's
-   SMOKE widths and an initial state for K4), and time the kernel, the plain
-   version and a library yardstick where one exists (K1 also at two
-   long-context shapes, L-MHA and L-GQA, beside a launch floor; K3 at each
-   of its three bf16 shapes, with its TFLOP/s; each of K4's three launches
-   by the profiler).  The profiler checks that K1 and K2 are one kernel a
-   call.
+   SMOKE widths and an initial state for K4; for K4-bwd, the backward of
+   the SSD scan, mamba2-370m's training shape, the SMOKE widths with an
+   initial state and a final state's gradient, also against autograd
+   through the plain scan, and an overflowing decay, with two calls
+   bit-identical), and time the kernel, the plain version and a library
+   yardstick where one exists (K1 also at two long-context shapes, L-MHA
+   and L-GQA, beside a launch floor; K3 at each of its three bf16 shapes,
+   with its TFLOP/s; each of K4's three launches and K4-bwd's seven by the
+   profiler).  The profiler checks that K1 and K2 are one kernel a call.
 3. Run the serve driver at full olmo-1b width (16 layers, d_model 2048) and
    check its counts and that it went through K1 (once a decode step) and K2
    (once a compaction).
@@ -40,6 +43,13 @@ Phases, in order; any failure exits non-zero:
    and with the full config.  K3-bwd is held against its plain version in
    phase 2, at olmo-1b's training shape, starcoder2-3b's GQA, phi3-mini's
    D = 96 and a ragged f32 case, and timed beside SDPA's backward.
+9. Train mamba2-370m at full width (48 layers, d_model 1024, batch 2, seq
+   4096, bf16 compute, f32 params, remat "full") for 4 steps of
+   ``build_train_step``: K4 twice a layer (forward and recompute) and
+   K4-bwd once a layer; profile one step by part; check one f32 step of
+   the kernel path against autograd through the plain chunked scan at full
+   width and 2 layers, held to f32's own spread; run the train driver with
+   ``--arch mamba2-370m --smoke``.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  There is no CPU fallback: with
@@ -778,9 +788,10 @@ def phase_ssd_scan():
     return record
 
 
-def ssd_launch_times(call, calls: int = 10):
+def ssd_launch_times(call, calls: int = 10, key="ssd_scan", tag="[K4]"):
     """Device time of each of K4's launches (chunk states, state passing,
-    chunk scan), by kernel name from the profiler, over a few calls."""
+    chunk scan), or of K4-bwd's (key "ssd_bwd"), by kernel name from the
+    profiler, over a few calls."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
@@ -789,11 +800,147 @@ def ssd_launch_times(call, calls: int = 10):
             call()
         torch.cuda.synchronize()
     by_name = {name: v for name, v in device_time_by_name(prof).items()
-               if "ssd_scan" in name}
+               if key in name}
     total = sum(us for us, _ in by_name.values())
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
-        print(f"[K4]   {us / n / 1e3:.4f} ms a launch ({100 * us / total:.1f}%)"
+        print(f"{tag}   {us / n / 1e3:.4f} ms a launch ({100 * us / total:.1f}%)"
               f" x{n // calls} a call: {name[:80]}", flush=True)
+
+
+def ssd_bwd_flops_bytes(b, s, h, p, n, chunk, with_state, with_dfinal):
+    """K4-bwd's least work: each of the forward's two products per (b, step,
+    h) and state entry (x dt outer B into the state, C through the state)
+    has a gradient for each of its operands, so twice the forward's, 8 P N
+    flops per (b, step, h).  And its bytes: x, dt, a, B, C, dy, the
+    forward's states and sums of dA (its workspace), the initial state and
+    dfinal where given, each read once; dx, ddt, da, dB, dC and dinit
+    written once."""
+    nc = s // chunk
+    flops = 8 * b * s * h * p * n
+    nbytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 2 * h + 4 * b * s * n
+                  + b * h * nc * (p * n + 1)
+                  + b * h * p * n * (2 * with_state + with_dfinal))
+    return flops, nbytes
+
+
+def phase_ssd_scan_bwd():
+    """K4-bwd against its plain version (ref.ssd_chunked_bwd_ref, the
+    explicit formulas) on the forward kernel's outputs and workspace, at
+    mamba2-370m's training shape, mamba2's SMOKE widths with an initial
+    state and a final state's gradient (there also against autograd through
+    ref.ssd_chunked_ref), and a decay that overflows exp over the upper
+    triangle; two calls must give the same bits.  The training case is
+    timed beside the plain backward, with each launch's share, and returns
+    its record."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator("cuda").manual_seed(SEED + 5)
+    # Tolerance, of each gradient's largest magnitude: f32 in and out, the
+    # products in split TF32 (as K4's forward) and the sums in other
+    # orders; measured up to ~2.3e-5 (dC at the training shape), held to
+    # 1e-4, K4's own.
+    tol = 1e-4
+    names = ("dx", "ddt", "da", "dB", "dC", "dinit")
+    # (label, B, S, H, P, N, chunk, dt range, a (None: -U(0.9, 1)), initial
+    # state and dfinal, autograd too).  dt 0.70-0.82 with a near -0.95 is
+    # the decay at mamba2-370m's init; training drops the final state, so
+    # its gradient is zero there.
+    cases = [
+        ("mamba2-370m training", *TRAIN, 32, 64, 128, 128, (0.70, 0.82),
+         None, False, False),
+        ("mamba2 SMOKE widths", 2, 256, 8, 16, 16, 16, (0.1, 0.9), None,
+         True, True),
+        ("overflowing decay", 2, 512, 4, 64, 128, 128, (0.70, 0.82), -0.95,
+         True, False),
+    ]
+    record = None
+    for label, b, s, h, p, n, chunk, (lo, hi), a_val, extra, auto in cases:
+        x, dy = (torch.randn((b, s, h, p), generator=gen, device="cuda")
+                 for _ in range(2))
+        dt = lo + (hi - lo) * torch.rand((b, s, h), generator=gen,
+                                         device="cuda")
+        a = (-(0.9 + 0.1 * torch.rand((h,), generator=gen, device="cuda"))
+             if a_val is None else torch.full((h,), a_val, device="cuda"))
+        bm, cm = (torch.randn((b, s, n), generator=gen, device="cuda")
+                  for _ in range(2))
+        init, dfinal = ((torch.randn((b, h, p, n), generator=gen,
+                                     device="cuda") for _ in range(2))
+                        if extra else (None, None))
+        args = (x, dt, a, bm, cm, chunk, init)
+        _, _, work = ss._forward(*args)
+        got = ss.ssd_scan_bwd(*args, dy, dfinal, work)
+        torch.cuda.synchronize()
+        oracles = [("plain", ref.ssd_chunked_bwd_ref(*args, dy, dfinal))]
+        if auto:
+            leaves = [t.detach().requires_grad_() for t in args[:5] + (init,)]
+            yy, ff = ref.ssd_chunked_ref(*leaves[:5], chunk, leaves[5])
+            oracles.append(("autograd", torch.autograd.grad(
+                (yy * dy).sum() + (ff * dfinal).sum(), leaves)))
+        errs, worst = [], 0.0
+        for oname, want in oracles:
+            for name, g, w in zip(names, got, want):
+                if w is None:
+                    continue
+                scale = float(w.abs().max())
+                err = float((g - w).abs().max())
+                if oname == "plain":
+                    worst = max(worst, err)
+                if g.shape != w.shape or not bool(torch.isfinite(g).all()) \
+                        or err > tol * scale:
+                    fail(f"ssd_scan_bwd {label}: {name} against the {oname} "
+                         f"version: max abs err {err:.3g} > {tol} x "
+                         f"{scale:.3g}")
+                errs.append(f"{name} {err / scale:.2e}")
+            errs[-1] += f" ({oname})"
+        del oracles
+        again = ss.ssd_scan_bwd(*args, dy, dfinal, work)
+        same = all(torch.equal(g, g2) for g, g2 in zip(got, again)
+                    if g is not None)
+        print(f"[K4 bwd] {label} (B,S,H,P,N)=({b},{s},{h},{p},{n}) chunk "
+              f"{chunk}{' with initial state and dfinal' if extra else ''}: "
+              f"max_abs_err / |max| {', '.join(errs)} (tol {tol}); two calls "
+              f"bit-identical: {same}", flush=True)
+        if not same:
+            fail(f"ssd_scan_bwd {label}: two calls differ")
+        if record is not None:
+            continue
+        del got, again
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ss.ssd_scan_bwd(*args, dy, dfinal, work)
+        torch.cuda.synchronize()
+        extra_mib = (torch.cuda.max_memory_allocated() - before) / 2**20
+        ms = device_ms("K4-bwd kernel", lambda: ss.ssd_scan_bwd(
+            *args, dy, dfinal, work), iters=20)
+        plain_ms = device_ms("K4-bwd plain", lambda: ref.ssd_chunked_bwd_ref(
+            *args, dy, dfinal), iters=3)
+        flops, nbytes = ssd_bwd_flops_bytes(b, s, h, p, n, chunk,
+                                            init is not None,
+                                            dfinal is not None)
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = 3 * flops / TF32_FLOPS * 1e3    # split TF32, as K4
+        record = dict(
+            name="ssd_scan_bwd", route="cuda",
+            source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            replaces="src/repro/models/ssm.py:72",
+            max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(byte_ms, op_ms),
+            bound_by="bytes" if byte_ms >= op_ms else "operations",
+            library_ms=None)
+        print(f"[K4 bwd] {label}: one call takes {extra_mib:.1f} MiB of "
+              f"device memory at its peak (the gradients and the scratch); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no library "
+              f"call (no PyTorch call computes the SSD scan's gradient); "
+              f"{nbytes} bytes, {flops} flops -> bound "
+              f"{record['bound_ms']:.6f} ms ({record['bound_by']}: 3 x the "
+              f"flops at {TF32_FLOPS / 1e12:.0f} TFLOP/s TF32, the bytes "
+              f"{byte_ms:.6f} ms at {HBM_BYTES_PER_S / 1e12} TB/s); kernel "
+              f"at {flops / ms / 1e9:.2f} TFLOP/s of that work, "
+              f"{ms / record['bound_ms']:.2f}x its bound", flush=True)
+        ssd_launch_times(lambda: ss.ssd_scan_bwd(*args, dy, dfinal, work),
+                         key="ssd_bwd", tag="[K4 bwd]")
+    return record
 
 
 def reset_counts():
@@ -804,6 +951,7 @@ def reset_counts():
     paged_attention.launches = 0
     gc_compact.launches = 0
     ssd_scan.launches = 0
+    ssd_scan.bwd_launches = 0
 
 
 def full_params(cfg):
@@ -950,7 +1098,7 @@ def phase_prefill_starcoder():
     return launches
 
 
-TRAIN = (2, 4096)              # olmo-1b training (batch, seq)
+TRAIN = (2, 4096)              # olmo-1b and mamba2-370m training (batch, seq)
 TRAIN_STEPS = 4
 
 
@@ -966,25 +1114,27 @@ def train_setup(cfg, b, s, lr=1e-3, seed=SEED):
     return params, init_state(params, tc.adamw), step
 
 
-def phase_train_olmo():
-    """The training path at full olmo-1b width: TRAIN_STEPS steps of
-    build_train_step with K3 (forward and remat recompute) and K3-bwd in
-    every layer, then one profiled step.  Returns (K3 launches, K3-bwd
-    launches) over the run."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
+def phase_train(cfg, kernels, parts, keep):
+    """The training path at full width: TRAIN_STEPS steps of
+    build_train_step (batch and seq TRAIN, AdamW lr 1e-3, params from SEED,
+    synthetic_batch steps 0-4), each step's loss, grad norm, time by CUDA
+    events and launches, then one profiled step.  ``kernels`` is
+    [(name, its count now, its launches a step)]; ``parts`` and ``keep``
+    go to profile_train_step.  Returns each kernel's launches over the
+    run."""
     from repro_torch.train import synthetic_batch
-    cfg = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked")
     b, s = TRAIN
+    tag = f"[train {cfg.name}]"
     params, opt, step = train_setup(cfg, b, s)
     batches = [synthetic_batch(cfg, i, b, s) for i in range(TRAIN_STEPS + 1)]
+    want = [per_step for *_, per_step in kernels]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # The path: counts set to 0 just before, read just after.
     reset_counts()
     times = []
     for i in range(TRAIN_STEPS):
-        before = (fa.launches, fa.bwd_launches)
+        before = [count() for _, count, _ in kernels]
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t = time.perf_counter()
         e0.record()
@@ -994,40 +1144,47 @@ def phase_train_olmo():
         wall = (time.perf_counter() - t) * 1e3
         times.append(e0.elapsed_time(e1))
         loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
-        fwd, bwd = fa.launches - before[0], fa.bwd_launches - before[1]
-        print(f"[train olmo-1b] step {i}: loss={loss:.6f} "
-              f"grad_norm={norm:.6f}; {times[-1]:.3f} ms by CUDA events "
-              f"({wall:.3f} ms host wall); flash_attention launches={fwd} "
-              f"flash_attention_bwd calls={bwd}", flush=True)
+        got = [count() - n for (_, count, _), n in zip(kernels, before)]
+        print(f"{tag} step {i}: loss={loss:.6f} grad_norm={norm:.6f}; "
+              f"{times[-1]:.3f} ms by CUDA events ({wall:.3f} ms host "
+              f"wall); launches " + " ".join(
+                  f"{name}={n}" for (name, _, _), n in zip(kernels, got)),
+              flush=True)
         if not (np.isfinite(loss) and np.isfinite(norm)):
-            fail(f"train olmo-1b: step {i} loss {loss} grad_norm {norm}")
-        if (fwd, bwd) != (2 * cfg.n_layers, cfg.n_layers):
-            fail(f"train olmo-1b: step {i} launched K3 {fwd} and K3-bwd "
-                 f"{bwd} times for {cfg.n_layers} layers under remat")
-    launches = (fa.launches, fa.bwd_launches)
-    print(f"[train olmo-1b] batch {b} seq {s}, bf16 compute, f32 params, "
-          f"remat {cfg.remat}: {TRAIN_STEPS} steps, "
+            fail(f"train {cfg.name}: step {i} loss {loss} grad_norm {norm}")
+        if got != want:
+            fail(f"train {cfg.name}: step {i} launched {got} for {want} "
+                 f"({cfg.n_layers} layers under remat)")
+    totals = [count() for _, count, _ in kernels]
+    print(f"{tag} batch {b} seq {s}, bf16 compute, f32 params, remat "
+          f"{cfg.remat}: {TRAIN_STEPS} steps, "
           f"{sum(times[1:]) / (len(times) - 1):.3f} ms a step over steps "
           f"2-{TRAIN_STEPS}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-          f"flash_attention={launches[0]} flash_attention_bwd={launches[1]}",
+          + " ".join(f"{name}={n}" for (name, _, _), n in zip(kernels,
+                                                                totals)),
           flush=True)
-    profile_train_step(step, params, opt, batches[TRAIN_STEPS], cfg.vocab)
-    return launches
+    profile_train_step(step, params, opt, batches[TRAIN_STEPS],
+                       f"{cfg.name} batch {b} seq {s}", parts, keep)
+    return totals
 
 
 # (substrings of a kernel's name, part), first match wins
+PRODUCT_PART = (("nvjet", "gemm", "cutlass", "xmma"), "matrix products (cuBLAS)")
 TRAIN_PARTS = ((("flash_attention_bwd",), "K3-bwd (flash_attention_bwd)"),
                (("flash_attention",), "K3 forward + recompute"),
-               (("nvjet", "gemm", "cutlass", "xmma"),
-                "matrix products (cuBLAS)"))
+               PRODUCT_PART)
+TRAIN_PARTS_SSM = ((("ssd_bwd",), "K4-bwd (ssd_scan_bwd)"),
+                   (("ssd_scan",), "K4 forward + recompute"),
+                   PRODUCT_PART)
 
 
-def profile_train_step(step, params, opt, batch, vocab):
+def profile_train_step(step, params, opt, batch, label, parts, keep):
     """Where one full-width training step spends device time, by kernel
-    name: K3-bwd, K3, the matrix products, and the rest (elementwise passes,
-    casts, reductions, the optimizer's update); then the AdamW update alone,
-    by CUDA events.  Printed only."""
+    name: the parts (the backward kernel, the forward kernel, the matrix
+    products) and the rest (elementwise passes, casts, reductions, the
+    optimizer's update); then the AdamW update alone, by CUDA events.
+    Printed only."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.train import AdamWConfig, apply_updates
@@ -1040,20 +1197,19 @@ def profile_train_step(step, params, opt, batch, vocab):
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name = device_time_by_name(prof)
     busy_ms = sum(us for us, _ in by_name.values()) / 1e3
-    parts = {}
+    totals = {}
     for name, (us, _) in by_name.items():
-        part = next((p for keys, p in TRAIN_PARTS
+        part = next((p for keys, p in parts
                      if any(key in name for key in keys)),
                     "elementwise, casts, reductions, optimizer")
-        parts[part] = parts.get(part, 0.0) + us / 1e3
-    print(f"[profile] train step olmo-1b batch {TRAIN[0]} seq {TRAIN[1]}: "
-          f"wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * (1 - busy_ms / wall_ms):.1f}% idle) in "
-          f"{sum(n for _, n in by_name.values())} device activities",
-          flush=True)
-    for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        totals[part] = totals.get(part, 0.0) + us / 1e3
+    print(f"[profile] train step {label}: wall {wall_ms:.3f} ms, device "
+          f"busy {busy_ms:.3f} ms ({100 * (1 - busy_ms / wall_ms):.1f}% "
+          f"idle) in {sum(n for _, n in by_name.values())} device "
+          "activities", flush=True)
+    for part, ms in sorted(totals.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  {part}")
-    print_ranked(by_name, ["flash_attention"])
+    print_ranked(by_name, keep)
     grads = tree_unflatten(params, [torch.zeros_like(p)
                                     for p in tree_leaves(params)])
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1134,6 +1290,82 @@ def phase_train_f32_check():
           "s on the CPU): " + ", ".join(rows), flush=True)
     if not np.isfinite(l1) or loss_rel > 1e-5 or bad:
         fail(f"train f32 check: chunked and naive gradients differ at "
+             f"{bad or 'the loss'}")
+
+
+def phase_train_mamba_f32_check():
+    """One f32 step's loss and gradients at full mamba2-370m width with the
+    depth cut to 2 layers (time and memory), batch 1, seq 1024 (8 chunks),
+    remat "full": the kernel path (K4 forward and recompute, K4-bwd)
+    against autograd through the plain chunked scan (``ops.ssd`` set to
+    ref.ssd_chunked_ref for that run) on the card.  The loss is held to
+    1e-5 relative.  The gradients are held to the spread of f32 itself,
+    measured in this run as olmo-1b's are (ROADMAP F7): the same plain path
+    on the host CPU against it on the card.  Here every leaf of the plain
+    path already moves by ~2e-4 from the card to the host (at 2 layers of
+    random init one step's gradient is that sensitive to rounding), and
+    the kernel path is one more f32 computation of it, its products in
+    split TF32 (2^-21 relative, not f32's 2^-24): the two distances are of
+    one size and either may be the larger at a leaf (conv_w 1.82e-4
+    against 1.70e-4 in the first run).  So each leaf of the kernel path
+    must lie within twice that spread of the card's plain gradient, and
+    within 1e-4 where twice the spread is smaller; a wrong gradient is off
+    by its own size."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import ssm
+    from repro_torch.train import synthetic_batch
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    cfg = dataclasses.replace(get_config("mamba2-370m"), n_layers=2,
+                              compute_dtype=torch.float32)
+    params = ssm.init(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_batch(cfg, 2, 1, 1024).items()}
+    kernel_ssd = ops.ssd
+
+    def loss_and_grads(params, batch, impl):
+        ops.ssd = kernel_ssd if impl == "kernel" else ref.ssd_chunked_ref
+        try:
+            leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+            loss = ssm.loss_fn(tree_unflatten(params, leaves), batch, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            ops.ssd = kernel_ssd
+        return float(loss.detach()), [g.cpu() for g in grads]
+
+    res = {}
+    for impl in ["plain", "kernel"]:
+        ss.launches = ss.bwd_launches = 0
+        res[impl] = loss_and_grads(params, batch, impl)
+        torch.cuda.synchronize()
+        want = ((2 * cfg.n_layers, cfg.n_layers) if impl == "kernel"
+                else (0, 0))
+        if (ss.launches, ss.bwd_launches) != want:
+            fail(f"train mamba2 f32 check: {impl} launched K4 {ss.launches} "
+                 f"and K4-bwd {ss.bwd_launches} times")
+    t = time.perf_counter()
+    host = loss_and_grads(tree_unflatten(params, [p.cpu() for p in
+                                              tree_leaves(params)]),
+                          {k: v.cpu() for k, v in batch.items()}, "plain")
+    host_s = time.perf_counter() - t
+    (l0, g0), (l1, g1), (_, gh) = res["plain"], res["kernel"], host
+    loss_rel = abs(l1 - l0) / abs(l0)
+    rows, bad = [], []
+    for name, a, c, h in zip(_flat_names(params), g0, g1, gh):
+        norm = float(a.norm())
+        rel, spread = float((c - a).norm()) / norm, float((h - a).norm()) / norm
+        rows.append(f"{name} {rel:.3g} (host {spread:.3g})")
+        if rel > max(2 * spread, 1e-4):
+            bad.append(name)
+    print(f"[train mamba2 f32 check] mamba2-370m full width, 2 layers, batch "
+          f"1 seq 1024 f32, remat {cfg.remat}: loss plain {l0:.7f} kernel "
+          f"{l1:.7f} (rel {loss_rel:.3g}, tol 1e-5); ‖Δg‖/‖g‖ of the kernel "
+          f"path against the plain one on the card (host plain against it, "
+          f"{host_s:.1f} s on the CPU; held to twice that): "
+          + ", ".join(rows), flush=True)
+    if not np.isfinite(l1) or loss_rel > 1e-5 or bad:
+        fail(f"train mamba2 f32 check: kernel and plain gradients differ at "
              f"{bad or 'the loss'}")
 
 
@@ -1452,7 +1684,7 @@ def main() -> int:
     phase_build()
     records = [phase_paged_attention(), phase_gc_compact(),
                phase_flash_attention(), phase_flash_attention_bwd(),
-               phase_ssd_scan()]
+               phase_ssd_scan(), phase_ssd_scan_bwd()]
     run_serve(SERVE_SMOKE, EXPECT_SMOKE)
 
     # The serve path: counts set to 0 just before, read just after.
@@ -1488,7 +1720,14 @@ def main() -> int:
 
     # The training path (its counts are set and read inside): K3 twice and
     # K3-bwd once a layer a step; then the f32 check and the driver.
-    _, records[3]["launches"] = phase_train_olmo()
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    cfg = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked")
+    _, records[3]["launches"] = phase_train(
+        cfg, [("flash_attention", lambda: fa.launches, 2 * cfg.n_layers),
+              ("flash_attention_bwd", lambda: fa.bwd_launches,
+               cfg.n_layers)],
+        TRAIN_PARTS, ["flash_attention"])
     torch.cuda.empty_cache()
     phase_train_f32_check()
     run_train_driver(["--smoke", "--steps", "4", "--batch", "2",
@@ -1504,6 +1743,21 @@ def main() -> int:
     records[4]["launches"] = phase_prefill_mamba(params)
     phase_decode_mamba(params)
     phase_profile_mamba(params)
+    del params
+    torch.cuda.empty_cache()
+
+    # The SSM training path (its counts are set and read inside): K4 twice
+    # and K4-bwd once a layer a step; then the f32 check and the train
+    # driver.
+    cfg = get_config("mamba2-370m")
+    _, records[5]["launches"] = phase_train(
+        cfg, [("ssd_scan", lambda: ss.launches, 2 * cfg.n_layers),
+              ("ssd_scan_bwd", lambda: ss.bwd_launches, cfg.n_layers)],
+        TRAIN_PARTS_SSM, ["ssd_"])
+    torch.cuda.empty_cache()
+    phase_train_mamba_f32_check()
+    run_train_driver(["--arch", "mamba2-370m", "--smoke", "--steps", "4",
+                      "--batch", "2", "--seq", "32"])
 
     print(json.dumps({"kernels": records}))
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",

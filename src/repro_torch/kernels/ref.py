@@ -201,3 +201,90 @@ def ssd_chunked_ref(x, dt, a, bmat, cmat, chunk: int,
     in_decay = torch.exp(dA_cs)                             # (B,nc,cl,H)
     y_off = torch.einsum("bcin,bchpn,bcih->bcihp", cc, prev_states, in_decay)
     return (y_diag + y_off).reshape(b, s, h, p), state
+
+
+def ssd_chunked_bwd_ref(x, dt, a, bmat, cmat, chunk: int,
+                        initial_state: Optional[torch.Tensor], dy,
+                        dfinal: Optional[torch.Tensor]):
+    """The gradients of ``ssd_chunked_ref`` by explicit formulas in the
+    chunked form, the plain version of the ``ssd_scan_bwd`` kernel.  Per
+    chunk, head and step, with cs the cumsum of dA = dt·a within the chunk,
+    L_ij = exp(cs_i − cs_j) (i ≥ j, masked before the exp) and
+    w_j = exp(cs_last − cs_j)·dt_j:
+
+    - G_c = Σ_i exp(cs_i) dy_iᵀ C_i, the gradient of the state entering
+      chunk c through its own output;
+    - the reverse state passing D_c = G_c + exp(cs_last,c)·D_{c+1} from
+      D_nc = dfinal; D_{c+1} is the gradient of the state leaving chunk c
+      and D_0 that of the initial state;
+    - dS_ij = L_ij (dy_i · dt_j x_j), summed over heads, the gradient of
+      C_i·B_j; dC gets dS B + exp(cs_i) dy_i·prev_c, dB gets dSᵀ C
+      + w_j x_jᵀ D_{c+1};
+    - d(cs) through L, exp(cs_i), w_j and exp(cs_last) of the state
+      passing; its reverse cumsum within the chunk is d(dA), whence
+      ddt += a·d(dA) and da = Σ dt·d(dA).
+
+    ``dfinal`` None is zeros.  Returns (dx, ddt, da, dB, dC, dinit), dinit
+    None when ``initial_state`` is None."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    nc = s // chunk
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+    bc = bmat.reshape(b, nc, chunk, n)
+    cc = cmat.reshape(b, nc, chunk, n)
+    dyc = dy.reshape(b, nc, chunk, h, p)
+
+    dA_cs = torch.cumsum(dtc * a, dim=2)                    # (B,nc,cl,H)
+    decay = _segsum_exp(dA_cs.movedim(-1, -2))              # (B,nc,H,i,j)
+    scores = torch.einsum("bcin,bcjn->bcij", cc, bc)
+    gated = decay * scores[:, :, None]
+    dA_sum = dA_cs[:, :, -1:, :]
+    state_decay = torch.exp(dA_sum - dA_cs)                 # exp(cs_last-cs_j)
+    w = state_decay * dtc
+    in_decay = torch.exp(dA_cs)                             # exp(cs_i)
+    chunk_decay = torch.exp(dA_sum[:, :, 0, :])             # (B,nc,H)
+
+    # the forward's states: prev[:, c] enters chunk c
+    chunk_states = torch.einsum("bcjn,bcjh,bcjhp->bchpn", bc, w, xc)
+    zeros = torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device)
+    state = zeros if initial_state is None else initial_state
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + chunk_states[:, c]
+    prev = torch.stack(prev, 1)                             # (B,nc,H,P,N)
+
+    # reverse state passing: dnext[:, c] is D_{c+1}
+    g = torch.einsum("bcih,bcihp,bcin->bchpn", in_decay, dyc, cc)
+    d = zeros if dfinal is None else dfinal
+    dnext = [None] * nc
+    for c in reversed(range(nc)):
+        dnext[c] = d
+        d = g[:, c] + chunk_decay[:, c, :, None, None] * d
+    dnext = torch.stack(dnext, 1)
+
+    dyx = torch.einsum("bcihp,bcjhp->bchij", dyc, xc * dtc[..., None])
+    dscores = (decay * dyx).sum(2)                          # (B,nc,i,j)
+    dxdt = torch.einsum("bchij,bcihp->bcjhp", gated, dyc)
+    db = torch.einsum("bchpn,bcjn->bcjhp", dnext, bc)       # D_{c+1} B_j
+    dw = (xc * db).sum(-1)                                  # (B,nc,cl,H)
+    dx = dxdt * dtc[..., None] + w[..., None] * db
+    ddt = (xc * dxdt).sum(-1) + state_decay * dw
+    dc = (torch.einsum("bcij,bcjn->bcin", dscores, bc)
+          + torch.einsum("bcih,bcihp,bchpn->bcin", in_decay, dyc, prev))
+    dbm = (torch.einsum("bcij,bcin->bcjn", dscores, cc)
+           + torch.einsum("bcjh,bcjhp,bchpn->bcjn", w, xc, dnext))
+
+    q = gated * dyx                                         # L's gradient · L
+    dcs = (q.sum(-1) - q.sum(-2)).movedim(2, -1)            # (B,nc,cl,H)
+    y_off = torch.einsum("bchpn,bcin->bcihp", prev, cc)     # without exp(cs_i)
+    dcs = dcs + in_decay * (dyc * y_off).sum(-1) - w * dw
+    last = (w * dw).sum(2) + chunk_decay * (dnext * prev).sum((-2, -1))
+    dcs = torch.cat([dcs[:, :, :-1], dcs[:, :, -1:] + last[:, :, None]], 2)
+    ddA = dcs.flip(2).cumsum(2).flip(2)
+    ddt = ddt + a * ddA
+    da = (dtc * ddA).sum((0, 1, 2))
+    return (dx.reshape(b, s, h, p), ddt.reshape(b, s, h), da,
+            dbm.reshape(b, s, n), dc.reshape(b, s, n),
+            None if initial_state is None else d)

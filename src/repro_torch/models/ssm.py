@@ -3,12 +3,13 @@
 
 The SSD scan of a whole sequence goes through ``kernels.ops.ssd``: the
 hand-written ``ssd_scan`` kernel for a CUDA tensor, its plain chunked
-version (``kernels.ref.ssd_chunked_ref``) for a CPU tensor.  Decode keeps a
-(B, H, P, N) SSM state and a rolling depthwise-conv window per layer and
-runs plain PyTorch, as the JAX package runs plain jnp there.  Stacked layers
-are walked by a Python loop.  ``cfg.remat`` is not read yet: training runs
-on CPU tensors only (autograd through the plain chunked scan), since the
-kernel has no backward; remat comes with that backward.
+version (``kernels.ref.ssd_chunked_ref``) for a CPU tensor; where a gradient
+is wanted, its backward is the ``ssd_scan_bwd`` kernel (or, on the CPU,
+``kernels.ref.ssd_chunked_bwd_ref``).  Decode keeps a (B, H, P, N) SSM state
+and a rolling depthwise-conv window per layer and runs plain PyTorch, as the
+JAX package runs plain jnp there.  Stacked layers are walked by a Python
+loop; under grad, ``remat="full"`` runs each layer through non-reentrant
+``torch.utils.checkpoint``, as ``jax.checkpoint`` wraps each layer there.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops
@@ -150,8 +152,14 @@ def forward(params: Params, batch: Dict, cfg: ModelConfig):
     not read).  Returns logits (B,S,V) in the compute dtype."""
     # Rows first, then the cast: the same values as casting the table.
     x = params["embed"][batch["tokens"]].to(cfg.compute_dtype)
+    remat = torch.is_grad_enabled() and cfg.remat != "none"
+    if remat and cfg.remat != "full":
+        raise NotImplementedError(f"remat={cfg.remat!r} is not yet ported")
     for lp in unstack_layers(params["layers"]):
-        x = ssd_layer(lp, x, cfg)
+        if remat:
+            x = checkpoint(ssd_layer, lp, x, cfg, use_reentrant=False)
+        else:
+            x = ssd_layer(lp, x, cfg)
     return unembed(params, x, cfg)
 
 

@@ -647,10 +647,13 @@ def test_ssd_scan_refuses_what_it_cannot_take(cuda):
                           dt, a, bm, cm, 16)
     with pytest.raises(TypeError):
         ssd_scan.ssd_scan(x.bfloat16(), dt, a, bm, cm, 16)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ssd_scan.ssd_scan(x.clone().requires_grad_(), dt, a, bm, cm, 16)
-    with torch.no_grad():      # no graph to cut off: runs
-        ssd_scan.ssd_scan(x.clone().requires_grad_(), dt, a, bm, cm, 16)
+    # an input that needs a gradient goes through SSDScan (K4 and K4-bwd)
+    y, _ = ssd_scan.ssd_scan(x.clone().requires_grad_(), dt, a, bm, cm, 16)
+    assert type(y.grad_fn).__name__ == "SSDScanBackward"
+    with torch.no_grad():      # no graph: the forward alone
+        y, _ = ssd_scan.ssd_scan(x.clone().requires_grad_(), dt, a, bm, cm,
+                                 16)
+    assert y.grad_fn is None
     with pytest.raises(ValueError, match="multiple of chunk"):
         ssd_scan.ssd_scan(x[:, :40].contiguous(), dt[:, :40].contiguous(), a,
                           bm[:, :40].contiguous(), cm[:, :40].contiguous(), 16)
@@ -770,18 +773,188 @@ def test_train_step_bf16_chunked_runs_through_both_kernels(cuda):
             np.isfinite(float(m["grad_norm"]))
 
 
-def test_mamba2_train_step_raises_k4_no_backward(cuda):
+SSD_BWD_NAMES = ("dx", "ddt", "da", "dB", "dC", "dinit")
+
+
+def _ssd_bwd_case(cuda, b, s, h, p, n, chunk, with_state, with_dfinal,
+                  dt_range=(0.1, 0.9), a_val=None, seed=0):
+    """Inputs, the forward kernel's workspace and K4-bwd's gradients."""
+    from repro_torch.kernels import ssd_scan
+    gen = torch.Generator(cuda).manual_seed(seed + s * h + p + n)
+    x, dt, a, bm, cm = _ssd_inputs(gen, b, s, h, p, n, cuda, dt_range)
+    if a_val is not None:
+        a = torch.full((h,), a_val, device=cuda)
+    init = (torch.randn((b, h, p, n), generator=gen, device=cuda)
+            if with_state else None)
+    dy = torch.randn((b, s, h, p), generator=gen, device=cuda)
+    dfinal = (torch.randn((b, h, p, n), generator=gen, device=cuda)
+              if with_dfinal else None)
+    args = (x, dt, a, bm, cm, chunk, init)
+    _, _, work = ssd_scan._forward(*args)
+    before = ssd_scan.bwd_launches
+    got = ssd_scan.ssd_scan_bwd(*args, dy, dfinal, work)
+    torch.cuda.synchronize()
+    assert ssd_scan.bwd_launches == before + 1
+    return args, dy, dfinal, work, got
+
+
+# tolerance: f32 in and out, the products in split TF32 (as K4's forward)
+# and the sums in other orders, so 1e-4 of each gradient's largest magnitude
+# (measured up to ~2.3e-5).
+def _check_ssd_bwd(got, want, tol=1e-4):
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert bool(torch.isfinite(g).all()), name
+        err = float((g - w).abs().max())
+        assert err <= tol * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 64, 3, 8, 16, 16), (1, 128, 2, 16, 32, 32), (2, 32, 4, 4, 8, 8),
+    (2, 256, 8, 16, 16, 16), (1, 512, 4, 64, 128, 128),
+    (2, 384, 3, 64, 16, 128), (1, 256, 2, 32, 128, 64), (1, 96, 5, 12, 24, 32),
+])
+@pytest.mark.parametrize("with_state,with_dfinal", [(False, False),
+                                                    (True, True)])
+def test_ssd_scan_bwd_kernel_matches_plain(cuda, b, s, h, p, n, chunk,
+                                           with_state, with_dfinal):
+    args, dy, dfinal, _, got = _ssd_bwd_case(cuda, b, s, h, p, n, chunk,
+                                             with_state, with_dfinal)
+    _check_ssd_bwd(got, ref.ssd_chunked_bwd_ref(*args, dy, dfinal))
+
+
+# The shapes the models give it at full width (as K4's model shapes): the
+# mamba2-370m training shape with its init-range decay, jamba's SSM (N =
+# 16), a long memory carried across all 32 chunks with an initial state and
+# dfinal, P = 48; and a decay that overflows exp over the upper triangle.
+@pytest.mark.parametrize("b,s,h,p,n,dt_range,a_val,extra", [
+    (2, 4096, 32, 64, 128, (0.70, 0.82), -0.95, False),
+    (2, 1024, 8, 64, 16, (0.1, 0.9), None, False),
+    (2, 4096, 4, 64, 128, (0.001, 0.05), None, True),
+    (1, 512, 3, 48, 64, (0.1, 0.9), None, True),
+    (2, 512, 4, 64, 128, (0.7, 0.82), -0.95, True),
+])
+def test_ssd_scan_bwd_kernel_at_model_shapes(cuda, b, s, h, p, n, dt_range,
+                                             a_val, extra):
+    args, dy, dfinal, _, got = _ssd_bwd_case(
+        cuda, b, s, h, p, n, 128, extra, extra, dt_range, a_val)
+    _check_ssd_bwd(got, ref.ssd_chunked_bwd_ref(*args, dy, dfinal))
+
+
+def test_ssd_scan_bwd_kernel_is_deterministic(cuda):
+    """No atomics: two calls on the same inputs give the same bits, and a
+    call on other inputs in between changes nothing."""
+    from repro_torch.kernels import ssd_scan
+    args, dy, dfinal, work, got = _ssd_bwd_case(cuda, 2, 1024, 32, 64, 128,
+                                                128, True, True)
+    other = _ssd_bwd_case(cuda, 2, 1024, 32, 64, 128, 128, False, False,
+                          seed=1)[-1]
+    again = ssd_scan.ssd_scan_bwd(*args, dy, dfinal, work)
+    for g, g2 in zip(got, again):
+        assert torch.equal(g, g2)
+    assert not torch.equal(got[0], other[0])
+
+
+def test_ssd_scan_gradient_through_autograd(cuda):
+    """ops.ssd on CUDA tensors that need a gradient (SSDScan: K4, then
+    K4-bwd) against autograd through ref.ssd_chunked_ref on the card, on a
+    loss that reads both outputs, at the tolerance above."""
+    from repro_torch.kernels import ssd_scan
+    gen = torch.Generator(cuda).manual_seed(3)
+    x, dt, a, bm, cm = _ssd_inputs(gen, 2, 256, 4, 32, 64, cuda)
+    init = torch.randn((2, 4, 32, 64), generator=gen, device=cuda)
+    wy = torch.randn((2, 256, 4, 32), generator=gen, device=cuda)
+    wf = torch.randn((2, 4, 32, 64), generator=gen, device=cuda)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, dt, a, bm, cm,
+                                                        init)]
+        y, final = fn(*leaves[:5], 64, leaves[5])
+        return torch.autograd.grad((y * wy).sum() + (final * wf).sum(),
+                                   leaves)
+
+    before = (ssd_scan.launches, ssd_scan.bwd_launches)
+    got = grads(ops.ssd)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan.bwd_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    _check_ssd_bwd(got, grads(ref.ssd_chunked_ref))
+
+
+def test_ssd_scan_bwd_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels import ssd_scan
+    args, dy, dfinal, work, _ = _ssd_bwd_case(cuda, 1, 64, 2, 16, 16, 16,
+                                              True, True)
+    with pytest.raises(ValueError, match="workspace"):
+        ssd_scan.ssd_scan_bwd(*args, dy, dfinal)
+    with pytest.raises(ValueError, match="workspace"):
+        ssd_scan.ssd_scan_bwd(*args, dy, dfinal, work[:-1])
+    with pytest.raises(ValueError, match="dy"):
+        ssd_scan.ssd_scan_bwd(*args, dy[:, :, :1].contiguous(), dfinal, work)
+    with pytest.raises(ValueError, match="dfinal"):
+        ssd_scan.ssd_scan_bwd(*args, dy, dfinal.double(), work)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssd_scan.ssd_scan_bwd(args[0], args[1].cpu(), *args[2:], dy, dfinal,
+                              work)
+    with pytest.raises(TypeError):
+        ssd_scan.ssd_scan_bwd(args[0].double(), *args[1:], dy, dfinal, work)
+    with pytest.raises(ValueError, match="unsupported"):
+        ssd_scan.ssd_scan_bwd(*args[:5], 24, args[6], dy, dfinal, work)
+
+
+def test_mamba2_train_step_runs_through_both_kernels(cuda):
+    """build_train_step for mamba2-370m SMOKE in f32 under remat "full", 3
+    steps: K4 twice a layer a step (forward and recompute) and K4-bwd once;
+    and the first step's loss and grad norm against the same step with the
+    scan replaced by its plain version (autograd through
+    ref.ssd_chunked_ref): f32, sums in other orders, 1e-5 and 1e-4
+    relative."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan
     from repro_torch.models import ssm
     from repro_torch.train import (TrainConfig, build_train_step,
                                    init_state, synthetic_batch)
     cfg = dataclasses.replace(get_config("mamba2-370m", smoke=True),
-                              compute_dtype=torch.float32)
-    params = ssm.init(cfg, torch.Generator(cuda).manual_seed(0), cuda)
-    step, _ = build_train_step(cfg, 2, 32, TrainConfig())
-    with pytest.raises(RuntimeError, match="no backward"):
-        step(params, init_state(params, TrainConfig().adamw),
-             synthetic_batch(cfg, 0, 2, 32))
+                              compute_dtype=torch.float32, remat="full")
+    first = {}
+    for impl in ["kernel", "plain"]:
+        params = ssm.init(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+        step, _ = build_train_step(cfg, 2, 64, TrainConfig())
+        opt = init_state(params, TrainConfig().adamw)
+        kernel_ssd = ops.ssd
+        if impl == "plain":
+            ops.ssd = ref.ssd_chunked_ref
+        try:
+            for i in range(3 if impl == "kernel" else 1):
+                ssd_scan.launches = ssd_scan.bwd_launches = 0
+                params, opt, m = step(params, opt,
+                                      synthetic_batch(cfg, i, 2, 64))
+                torch.cuda.synchronize()
+                want = ((2 * cfg.n_layers, cfg.n_layers) if impl == "kernel"
+                        else (0, 0))
+                assert (ssd_scan.launches, ssd_scan.bwd_launches) == want
+                assert np.isfinite(float(m["loss"])) and \
+                    np.isfinite(float(m["grad_norm"]))
+                if i == 0:
+                    first[impl] = (float(m["loss"]), float(m["grad_norm"]))
+        finally:
+            ops.ssd = kernel_ssd
+    (l1, n1), (l0, n0) = first["kernel"], first["plain"]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    assert abs(n1 - n0) <= 1e-4 * n0
+
+
+def test_mamba2_train_driver_on_the_card(cuda):
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(["--arch", "mamba2-370m", "--smoke", "--steps", "3",
+                         "--batch", "2", "--seq", "32"])
+    lines = buf.getvalue().splitlines()
+    assert rc == 0 and lines[-1] == "training done" and len(lines) == 4
 
 
 def test_train_driver_on_the_card(cuda):

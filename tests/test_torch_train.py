@@ -161,9 +161,9 @@ TRAIN_CASES = [(arch, impl, dtype)
 def test_train_step_matches_jax(arch, impl, dtype):
     """3 steps at batch 2, seq 32, lr 1e-3: loss and grad norm each step,
     params after the last (tolerances in the module docstring).  On the
-    CPU the chunked branch runs K3's plain forward and backward; mamba2
-    trains through the plain chunked scan (on the card K4 has no backward
-    yet)."""
+    CPU the chunked branch runs K3's plain forward and backward; mamba2's
+    scan goes through SSDScan, the plain chunked forward and its plain
+    backward (``ref.ssd_chunked_bwd_ref``)."""
     metrics, jp, tp = _run_both(arch, dtype, impl)
     loss_tol, norm_tol, worst = ((1e-5, 1e-4, 2 * LR * STEPS)
                                  if dtype == "f32" else (2e-3, 0.6, 10 * LR))
@@ -228,12 +228,17 @@ def test_microbatches_match_jax():
             1e-5 * m1["grad_norm"]
 
 
-@pytest.mark.parametrize("impl", ["naive", "chunked"])
-def test_remat_full_gives_the_same_grads(impl):
+@pytest.mark.parametrize("arch,impl", [
+    pytest.param("olmo-1b", "naive", id="naive"),
+    pytest.param("olmo-1b", "chunked", id="chunked"),
+    pytest.param("mamba2-370m", "naive", id="mamba2-370m")])
+def test_remat_full_gives_the_same_grads(arch, impl):
     """remat="full" runs each layer again in the backward pass: on the CPU
     the recomputed forward is the same arithmetic, so one step gives the
-    same loss and grad norm to the last bit, and params within 1e-7."""
-    _, tc = _cfgs("olmo-1b", "f32", attn_impl=impl)
+    same loss and grad norm to the last bit, and params within 1e-7.  For
+    mamba2 the layer's scan goes through SSDScan (the plain forward, again
+    under remat, and the plain backward)."""
+    _, tc = _cfgs(arch, "f32", attn_impl=impl)
     out = {}
     for remat in ["none", "full"]:
         cfg = dataclasses.replace(tc, remat=remat)
@@ -253,17 +258,19 @@ def test_remat_full_gives_the_same_grads(impl):
 
 
 def test_remat_policy_not_ported_raises_only_under_grad():
-    _, tc = _cfgs("olmo-1b", "f32")
-    cfg = dataclasses.replace(tc, remat="dots_with_no_batch_dims")
-    model = get_model(cfg)
-    params = model.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    batch = {k: torch.from_numpy(v)
-             for k, v in j_data.synthetic_batch(cfg, 0, 1, 8).items()}
-    with torch.no_grad():          # the loop is unchanged: runs
-        assert model.forward(params, batch, cfg).shape == (1, 8, cfg.vocab)
-    params["unembed"].requires_grad_()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        model.loss_fn(params, batch, cfg)
+    for arch in ["olmo-1b", "mamba2-370m"]:
+        _, tc = _cfgs(arch, "f32")
+        cfg = dataclasses.replace(tc, remat="dots_with_no_batch_dims")
+        model = get_model(cfg)
+        params = model.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        batch = {k: torch.from_numpy(v)
+                 for k, v in j_data.synthetic_batch(cfg, 0, 1, 16).items()}
+        with torch.no_grad():          # the loop is unchanged: runs
+            assert model.forward(params, batch, cfg).shape == \
+                (1, 16, cfg.vocab)
+        params["unembed"].requires_grad_()
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            model.loss_fn(params, batch, cfg)
 
 
 def _abstract(tree):
