@@ -17,8 +17,10 @@ Phases, in order; any failure exits non-zero:
    bit-identical), and time the kernel, the plain version and a library
    yardstick where one exists (K1 also at two long-context shapes, L-MHA
    and L-GQA, beside a launch floor; K3 at each of its three bf16 shapes,
-   with its TFLOP/s; each of K4's three launches and K4-bwd's seven by the
-   profiler).  The profiler checks that K1 and K2 are one kernel a call.
+   with its TFLOP/s; each of K4's three launches and K4-bwd's six by the
+   profiler, and the route each K4-bwd case took: P = 64 at chunk 64 or
+   128 on the tensor-core route, every other shape on the route of
+   mma.sync).  The profiler checks that K1 and K2 are one kernel a call.
 3. Run the serve driver at full olmo-1b width (16 layers, d_model 2048) and
    check its counts and that it went through K1 (once a decode step) and K2
    (once a compaction).
@@ -807,6 +809,41 @@ def ssd_launch_times(call, calls: int = 10, key="ssd_scan", tag="[K4]"):
               f" x{n // calls} a call: {name[:80]}", flush=True)
 
 
+# K4-bwd's kernels by route (csrc/ssd_scan_bwd.cu): the tensor-core route
+# (wgmma in split TF32; P = 64, chunk 64 or 128) runs the state and
+# intra-chunk terms as one launch, and dB/dC and the chunk gradients on
+# wgmma where N is 64 or 128; every other shape keeps the route of
+# mma.sync.
+SSD_BWD_TC = ("ssd_bwd_fused_kernel",)
+SSD_BWD_MMA = ("ssd_bwd_state_terms_kernel", "ssd_bwd_intra_kernel")
+
+
+def ssd_bwd_kernels(call, tries=3):
+    """The names of K4-bwd's kernels, by the profiler over three calls.  The
+    profiler now and then misses the launches queued as it starts, so a
+    window that shows fewer than six is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+    names = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        names = sorted(nm for nm in device_time_by_name(prof) if "ssd_bwd" in nm)
+        if len(names) >= 6:
+            break
+    return names
+
+
+def ssd_bwd_route(names):
+    tc = any(k in nm for nm in names for k in SSD_BWD_TC)
+    mma = any(k in nm for nm in names for k in SSD_BWD_MMA)
+    if tc == mma:
+        fail(f"ssd_scan_bwd: no single route in {names}")
+    return "tensor-core (wgmma)" if tc else "mma.sync"
+
+
 def ssd_bwd_flops_bytes(b, s, h, p, n, chunk, with_state, with_dfinal):
     """K4-bwd's least work: each of the forward's two products per (b, step,
     h) and state entry (x dt outer B into the state, C through the state)
@@ -896,12 +933,16 @@ def phase_ssd_scan_bwd():
         again = ss.ssd_scan_bwd(*args, dy, dfinal, work)
         same = all(torch.equal(g, g2) for g, g2 in zip(got, again)
                     if g is not None)
+        route = ssd_bwd_route(ssd_bwd_kernels(
+            lambda: ss.ssd_scan_bwd(*args, dy, dfinal, work)))
         print(f"[K4 bwd] {label} (B,S,H,P,N)=({b},{s},{h},{p},{n}) chunk "
               f"{chunk}{' with initial state and dfinal' if extra else ''}: "
-              f"max_abs_err / |max| {', '.join(errs)} (tol {tol}); two calls "
-              f"bit-identical: {same}", flush=True)
+              f"route {route}; max_abs_err / |max| {', '.join(errs)} (tol "
+              f"{tol}); two calls bit-identical: {same}", flush=True)
         if not same:
             fail(f"ssd_scan_bwd {label}: two calls differ")
+        if p == 64 and chunk in (64, 128) and not route.startswith("tensor"):
+            fail(f"ssd_scan_bwd {label}: took the route of mma.sync")
         if record is not None:
             continue
         del got, again

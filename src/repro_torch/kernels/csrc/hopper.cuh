@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
 // loads, cp.async with zero fill, 1-D bulk copies, shared-memory matrix
 // descriptors for 128-byte swizzled tiles,
-// register reallocation, and the four wgmma shapes the bf16 attention
-// kernels issue (bf16 inputs, f32 accumulators); on the host, the TMA
-// tensor map of a (batch, seq, heads, d) bf16 tensor.
+// register reallocation, the four wgmma shapes the bf16 attention
+// kernels issue (bf16 inputs, f32 accumulators) and the two .tf32 ones
+// with A in registers that the SSD scan's backward issues; on the host,
+// the TMA tensor map of a (batch, seq, heads, d) bf16 tensor.
 //
 // Accumulator layout of wgmma.m64nNk16 (f32), for thread t of the
 // warpgroup: warp w = t / 32 owns rows 16 w .. 16 w + 15; register
@@ -150,6 +151,12 @@ template <int kN>
 __device__ __forceinline__ void fence_regs(float (&r)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 template <int kM, int kN>
@@ -304,6 +311,71 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[kN / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
   if constexpr (kN == 64) wgmma_rs_n64(d, a, b, 1);
   else wgmma_rs_n128(d, a, b, 1);
+}
+
+// ---- wgmma, tf32 ----
+//
+// D (+)= A B with A (64 x 8) in registers and B (8 x N) K-major in shared
+// memory (.tf32 takes no transpose: both operands K-major).  A fragment of
+// thread t: warp w = t / 32 owns rows 16 w .. 16 w + 15; a[0] is row
+// 16 w + (t % 32) / 4, column t % 4; a[1] the row 8 below; a[2], a[3] the
+// same rows at column t % 4 + 4.  The tensor core reads a register's top
+// 19 bits (TF32); the accumulator layout is wgmma.m64nNk16's above.
+
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <int kN>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[kN / 2], const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  if constexpr (kN == 64) wgmma_tf32_rs_n64(d, a, b, scale_d);
+  else wgmma_tf32_rs_n128(d, a, b, scale_d);
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands written by threads, not TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- host: TMA tensor maps ----

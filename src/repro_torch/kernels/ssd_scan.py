@@ -21,8 +21,12 @@ anew on every call (67 MB at that prefill).
 Where a gradient is wanted the call goes through ``SSDScan``, a
 ``torch.autograd.Function``: its forward keeps the workspace, and its
 backward is the backward kernel, which takes the states entering each
-chunk from it instead of computing them again.  Both kernels take float32
-only (``ssd_layer`` always feeds them f32).
+chunk from it instead of computing them again.  The backward has two
+routes, chosen in the kernel by shape: P = 64 at chunk 64 or 128
+(mamba2-370m, jamba) runs its state and intra-chunk terms as one launch and
+dB/dC (N 64 or 128) on ``wgmma`` in split TF32; every other shape keeps the
+products on ``mma.sync``.  Both kernels take float32 only (``ssd_layer``
+always feeds them f32).
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ from . import _build, ref
 
 # Kernel calls since the last reset; chip_smoke.py reads them.  ``launches``
 # counts forward calls (three launches each), ``bwd_launches`` backward
-# calls (seven launches each).
+# calls (six launches each where P = 64 at chunk 64 or 128, the tensor-core
+# route; seven on the route of mma.sync).
 launches = 0
 bwd_launches = 0
 

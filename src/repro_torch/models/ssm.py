@@ -9,7 +9,8 @@ is wanted, its backward is the ``ssd_scan_bwd`` kernel (or, on the CPU,
 and a rolling depthwise-conv window per layer and runs plain PyTorch, as the
 JAX package runs plain jnp there.  Stacked layers are walked by a Python
 loop; under grad, ``remat="full"`` runs each layer through non-reentrant
-``torch.utils.checkpoint``, as ``jax.checkpoint`` wraps each layer there.
+``torch.utils.checkpoint``, as ``jax.checkpoint`` wraps each layer there;
+every other policy runs each layer plain, as the reference does.
 """
 
 from __future__ import annotations
@@ -152,9 +153,9 @@ def forward(params: Params, batch: Dict, cfg: ModelConfig):
     not read).  Returns logits (B,S,V) in the compute dtype."""
     # Rows first, then the cast: the same values as casting the table.
     x = params["embed"][batch["tokens"]].to(cfg.compute_dtype)
-    remat = torch.is_grad_enabled() and cfg.remat != "none"
-    if remat and cfg.remat != "full":
-        raise NotImplementedError(f"remat={cfg.remat!r} is not yet ported")
+    # As the reference: only "full" checkpoints; every other policy runs
+    # each layer plain.
+    remat = torch.is_grad_enabled() and cfg.remat == "full"
     for lp in unstack_layers(params["layers"]):
         if remat:
             x = checkpoint(ssd_layer, lp, x, cfg, use_reentrant=False)

@@ -1,10 +1,26 @@
 """The kernel build cache: a library's name covers everything compiled into
 it (its source, every shared ``csrc/*.cuh`` header and the nvcc flags), so
-a stale library is never loaded.  Needs no nvcc: only names are compared."""
+a stale library is never loaded; and the K4-bwd probe's variants, text
+substitutions into the current source.  Needs no nvcc: only names and
+texts are compared."""
+
+import importlib.util
+from pathlib import Path
 
 import pytest
 
 from repro_torch.kernels import _build
+
+
+def _probe():
+    path = Path(__file__).resolve().parents[1] / "tools" / "ssd_bwd_probe.py"
+    spec = importlib.util.spec_from_file_location("ssd_bwd_probe", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+PROBE = _probe()
 
 
 @pytest.fixture
@@ -49,3 +65,18 @@ def test_library_path_ignores_what_is_not_compiled(csrc, edit):
     else:
         (csrc / "a.cu").write_text((csrc / "a.cu").read_text())
     assert _build.library_path(csrc / "a.cu") == before
+
+
+@pytest.mark.parametrize("variant", list(PROBE.VARIANTS))
+def test_probe_variant_finds_its_text_once(variant):
+    """tools/ssd_bwd_probe.py builds each variant by substituting texts
+    into ssd_scan_bwd.cu: each must occur there exactly once, so an edit
+    of the kernel that moves one fails here and not on the card."""
+    src = (_build.CSRC / "ssd_scan_bwd.cu").read_text()
+    out = PROBE.apply(src, variant, PROBE.VARIANTS[variant])
+    assert (out == src) == (not PROBE.VARIANTS[variant])
+
+
+def test_probe_refuses_a_text_it_cannot_find():
+    with pytest.raises(ValueError, match="not once"):
+        PROBE.apply("int a;\n", "v", [("int b;", "")])

@@ -123,15 +123,29 @@ def _split_inputs(rng, cuda, b, h, hkv, d, page, n_pages, lengths, q_dtype,
             torch.from_numpy(np.asarray(lengths, np.int32)).to(cuda)]
 
 
-def _k1_kernels_per_call(args):
+def _device_kernel_names(call, tries=3, calls=1):
+    """The names of the kernels that `calls` calls launch, by the profiler,
+    as a list (one entry a launch).  The profiler on the card now and then
+    records no device event for a window, or misses the launches queued as
+    it starts (chip_smoke.py retries for the same reason), so an empty
+    window is taken again, up to `tries` times."""
     from torch.profiler import ProfilerActivity, profile
-    pa.paged_attention(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        pa.paged_attention(*args)
+    call()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type.name == "CUDA" and "paged_attention" in e.name)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        if names:
+            return names
+    return []
+
+
+def _k1_kernels_per_call(args):
+    return sum(1 for nm in _device_kernel_names(lambda: pa.paged_attention(*args))
+               if "paged_attention" in nm)
 
 
 # The long-context shapes of chip_smoke.py: L-MHA (olmo-1b widths, lengths
@@ -903,6 +917,64 @@ def test_ssd_scan_bwd_refuses_what_it_cannot_take(cuda):
         ssd_scan.ssd_scan_bwd(args[0].double(), *args[1:], dy, dfinal, work)
     with pytest.raises(ValueError, match="unsupported"):
         ssd_scan.ssd_scan_bwd(*args[:5], 24, args[6], dy, dfinal, work)
+
+
+def _ssd_bwd_kernel_names(call):
+    """The names of the ssd_bwd kernels a call launches, from a window of
+    three calls: all six or seven, or a window is taken again (see
+    _device_kernel_names)."""
+    for _ in range(3):
+        names = {nm for nm in _device_kernel_names(call, calls=3) if "ssd_bwd" in nm}
+        if len(names) >= 6:
+            return names
+    return names
+
+
+# K4-bwd's routes (csrc/ssd_scan_bwd.cu): P = 64 at chunk 64 or 128 takes
+# the tensor-core route (the state and intra-chunk terms as one wgmma
+# launch; dB/dC and the chunk gradients on wgmma where N is 64 or 128);
+# every other shape keeps the route of mma.sync.
+SSD_BWD_TC = ("ssd_bwd_fused_kernel",)
+SSD_BWD_MMA = ("ssd_bwd_state_terms_kernel", "ssd_bwd_intra_kernel")
+
+
+def test_ssd_scan_bwd_training_shape_runs_the_tensor_core_route(cuda):
+    """At mamba2-370m's training shape the profiler shows the fused launch,
+    dB/dC and the chunk gradients on wgmma, and none of the kernels they
+    replace on the route of mma.sync."""
+    from repro_torch.kernels import ssd_scan
+    args, dy, dfinal, work, _ = _ssd_bwd_case(cuda, 2, 4096, 32, 64, 128,
+                                              128, False, False,
+                                              (0.70, 0.82), -0.95)
+    bwd = _ssd_bwd_kernel_names(
+        lambda: ssd_scan.ssd_scan_bwd(*args, dy, dfinal, work))
+    for new in ("ssd_bwd_fused_kernel", "ssd_bwd_dbdc_wgmma_kernel",
+                "ssd_bwd_dstate_wgmma_kernel"):
+        assert any(new in nm for nm in bwd), (new, bwd)
+    for old in SSD_BWD_MMA + ("ssd_bwd_dbdc_kernel", "ssd_bwd_dstate_kernel"):
+        assert not any(old in nm for nm in bwd), (old, bwd)
+
+
+# Shapes of test_ssd_scan_bwd_kernel_matches_plain on each side of the
+# route split (and N = 16, whose dB/dC stays on mma.sync).
+@pytest.mark.parametrize("b,s,h,p,n,chunk,tc", [
+    (1, 512, 4, 64, 128, 128, True), (2, 384, 3, 64, 16, 128, True),
+    (1, 256, 2, 64, 128, 64, True), (1, 256, 2, 32, 128, 64, False),
+    (2, 64, 3, 8, 16, 16, False), (1, 96, 5, 12, 24, 32, False),
+])
+def test_ssd_scan_bwd_routes_hold_tolerance_and_repeat(cuda, b, s, h, p, n,
+                                                       chunk, tc):
+    from repro_torch.kernels import ssd_scan
+    args, dy, dfinal, work, got = _ssd_bwd_case(cuda, b, s, h, p, n, chunk,
+                                                True, True)
+    names = _ssd_bwd_kernel_names(
+        lambda: ssd_scan.ssd_scan_bwd(*args, dy, dfinal, work))
+    keys = SSD_BWD_TC if tc else SSD_BWD_MMA
+    assert all(any(k in nm for nm in names) for k in keys), names
+    _check_ssd_bwd(got, ref.ssd_chunked_bwd_ref(*args, dy, dfinal))
+    again = ssd_scan.ssd_scan_bwd(*args, dy, dfinal, work)
+    for g, g2 in zip(got, again):
+        assert (g is None and g2 is None) or torch.equal(g, g2)
 
 
 def test_mamba2_train_step_runs_through_both_kernels(cuda):

@@ -10,7 +10,13 @@ the flags of ``kernels/_build.py``); holds the unmodified source against
 times each variant at mamba2-370m's training shape (B, S, H, P, N) = (2,
 4096, 32, 64, 128), chunk 128: one call by CUDA events and each launch by
 the profiler.  Variants that cut a part out give wrong gradients and serve
-timing only.  Prints one line per variant.
+timing only: the route of mma.sync for comparison; the products, tile
+fetches and A loads of every wgmma launch; the fused launch's tile splits
+and dS epilogue, its exps and column sums; dB/dC's carried terms.  Each
+variant's texts must occur once in the source (``apply`` raises otherwise;
+tests/test_torch_build.py checks them on the CPU).  Prints ptxas's
+registers, spills and wgmma notes for the unmodified source, then one line
+per variant.
 """
 
 from __future__ import annotations
@@ -28,40 +34,58 @@ import torch  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 
-LOOP = "#pragma unroll 4\n  for (int kk = k0; kk < k1; kk += 8) {"
-ROLLED = "  for (int kk = k0; kk < k1; kk += 8) {"
-# name: [(text in the source, its replacement)]
+PRODUCTS = """    hopper::wgmma_tf32_rs<kN>(acc, al, dh, 1);
+    hopper::wgmma_tf32_rs<kN>(acc, ah, dl, 1);
+    hopper::wgmma_tf32_rs<kN>(acc, ah, dh, 1);
+"""
+# name: [(text in the source, its replacement)]; each text must occur
+# exactly once (tests/test_torch_build.py checks that on the CPU)
 VARIANTS = {
     "as is": [],
-    "k-loop rolled": [(LOOP, ROLLED)],
-    "k-loop by 2": [(LOOP, "#pragma unroll 2\n" + ROLLED)],
-    "k-loop by 8": [(LOOP, "#pragma unroll 8\n" + ROLLED)],
-    "state terms without products": [
-        ("      float db[8][4] = {}, yo[8][4] = {};",
-         "      return;\n      float db[8][4] = {}, yo[8][4] = {};")],
-    "intra without (a)": [("    if (warp / 2 < NPAIR) {", "    if (false) {")],
-    "intra without (b)": [
-        ("      const int nts[2] = {nt, m0[1] == m0[0] ? 0 : nt};",
-         "      const int nts[2] = {0, 0};")],
-    "dB/dC without heads": [("  for (int head = 0; head < h; ++head) {",
-                             "  for (int head = 0; head < 0; ++head) {")],
+    "route of mma.sync": [("    tc_route = tc::takes(p, n, CL);",
+                           "    tc_route = false;")],
+    "without products": [(PRODUCTS, "")],
+    "without tile fetches": [
+        ("    cp_async16(raw + r * rs + c, src + (size_t)r * gs + c);\n", "")],
+    "fused without splits": [("    switch (k & 3) {\n      case 0: split",
+                              "    switch (4) {\n      case 0: split")],
+    "without A loads": [("    if (p + 2 < p1) load(p + 2, nxt2);\n", "")],
+    "fused without dS": [("          if (jt > 2 * m + 1) continue;",
+                          "          continue;")],
+    "dS without exp": [
+        ("dec[v] = j0 + v <= ii ? expf(cs_s[ii] - cs_s[j0 + v]) * dt_s[j0 + v]",
+         "dec[v] = j0 + v <= ii ? dt_s[j0 + v]")],
+    "dS without column sums": [
+        ("          if (g == 0)\n            *reinterpret_cast<float2*>(colp",
+         "          if (g == 9)\n            *reinterpret_cast<float2*>(colp")],
+    "dB/dC without carried terms": [
+        ("      product<kN>(acc, ts, n * 128, 0, P / 16, load, shape);\n", "")],
 }
+# (B, S, H, P, N, chunk): the route of mma.sync (chunk 8-32, P 12), then the
+# tensor-core route: jamba's N = 16, chunk 64, mamba2-370m's widths
 SHAPES = [(1, 32, 2, 8, 16, 16), (2, 32, 4, 4, 8, 8), (1, 96, 5, 12, 24, 32),
-          (2, 384, 3, 64, 16, 128), (1, 512, 4, 64, 128, 128),
-          (2, 4096, 32, 64, 128, 128)]
+          (2, 384, 3, 64, 16, 128), (1, 256, 2, 64, 128, 64),
+          (1, 512, 4, 64, 128, 128), (2, 4096, 32, 64, 128, 128)]
+
+
+def apply(src: str, name: str, subs) -> str:
+    """The source with a variant's substitutions; raises unless each text
+    occurs exactly once."""
+    for old, new in subs:
+        if src.count(old) != 1:
+            raise ValueError(f"variant {name!r}: {old[:60]!r} occurs "
+                             f"{src.count(old)} times in the source, not once")
+        src = src.replace(old, new)
+    return src
 
 
 def build():
     out = ROOT / "build" / "ssd_bwd_probe"
     out.mkdir(parents=True, exist_ok=True)
     src = (_build.CSRC / "ssd_scan_bwd.cu").read_text()
+    texts = {name: apply(src, name, subs) for name, subs in VARIANTS.items()}
     procs = {}
-    for i, (name, subs) in enumerate(VARIANTS.items()):
-        text = src
-        for old, new in subs:
-            if old not in text:
-                sys.exit(f"variant {name!r}: {old[:50]!r} is not in the source")
-            text = text.replace(old, new)
+    for i, (name, text) in enumerate(texts.items()):
         cu = out / f"v{i}.cu"
         cu.write_text(text)
         procs[name] = (out / f"libv{i}.so", subprocess.Popen(
@@ -74,6 +98,12 @@ def build():
         log, _ = proc.communicate()
         if proc.returncode:
             sys.exit(f"variant {name!r} does not build:\n{log[-3000:]}")
+        if name == "as is":               # registers, spills, wgmma notes
+            for line in log.splitlines():
+                if "fused" in line or "C75" in line:
+                    print("ptxas:", line.strip()[:160], flush=True)
+                elif "registers" in line or "spill" in line:
+                    print("ptxas:   ", line.strip()[:100], flush=True)
         lib = ctypes.CDLL(str(path))
         lib.ssd_scan_bwd.argtypes = ([ctypes.c_void_p] * 15
                                      + [ctypes.c_int] * 6 + [ctypes.c_void_p])
