@@ -42,16 +42,30 @@ Phases, in order; any failure exits non-zero:
    (K3-bwd) once a layer; profile one step by part; check one f32 step of
    the chunked path (K3 and K3-bwd) against the naive one (einsum and
    autograd) at full width and 2 layers; run the train driver at SMOKE size
-   and with the full config.  K3-bwd is held against its plain version in
-   phase 2, at olmo-1b's training shape, starcoder2-3b's GQA, phi3-mini's
-   D = 96 and a ragged f32 case, and timed beside SDPA's backward.
+   and with the full config; take one more step twice, from the state and
+   from a clone of it, and require the same bits in every leaf of params,
+   moments and count and in the loss and grad norm.  K3-bwd is held
+   against its plain version in phase 2, at olmo-1b's training shape,
+   starcoder2-3b's GQA, phi3-mini's D = 96 and a ragged f32 case, and
+   timed beside SDPA's backward.
 9. Train mamba2-370m at full width (48 layers, d_model 1024, batch 2, seq
    4096, bf16 compute, f32 params, remat "full") for 4 steps of
    ``build_train_step``: K4 twice a layer (forward and recompute) and
    K4-bwd once a layer; profile one step by part; check one f32 step of
    the kernel path against autograd through the plain chunked scan at full
    width and 2 layers, held to f32's own spread; run the train driver with
-   ``--arch mamba2-370m --smoke``.
+   ``--arch mamba2-370m --smoke``.  One more step taken twice from the same
+   state must give the same bits, as in phase 8.
+10. Checkpoints (``[checkpoint]``): crash and resume through the train
+   driver on the card for olmo-1b and mamba2-370m at SMOKE size (crash
+   after step 5 of 8 with a checkpoint every 3 steps, resume, and an
+   uninterrupted run): the resumed run prints ``resumed from step 5`` and
+   the losses of steps 6-7 of the uninterrupted one, and both final
+   checkpoints restore into card tensors with the same bits in every leaf.
+   Then time a save, a recovery and a restore into card tensors of the
+   full-width mamba2-370m training state (params and both AdamW moments,
+   f32) cut to 2 of its 48 layers: one save, as the engine's save slows
+   down as the store fills (``tools/ckpt_throughput.py`` takes more).
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  There is no CPU fallback: with
@@ -64,9 +78,11 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1159,7 +1175,8 @@ def phase_train(cfg, kernels, parts, keep):
     """The training path at full width: TRAIN_STEPS steps of
     build_train_step (batch and seq TRAIN, AdamW lr 1e-3, params from SEED,
     synthetic_batch steps 0-4), each step's loss, grad norm, time by CUDA
-    events and launches, then one profiled step.  ``kernels`` is
+    events and launches, then the same step taken twice from one state
+    (check_step_repeats) and one profiled step.  ``kernels`` is
     [(name, its count now, its launches a step)]; ``parts`` and ``keep``
     go to profile_train_step.  Returns each kernel's launches over the
     run."""
@@ -1205,9 +1222,43 @@ def phase_train(cfg, kernels, parts, keep):
           + " ".join(f"{name}={n}" for (name, _, _), n in zip(kernels,
                                                                 totals)),
           flush=True)
+    check_step_repeats(tag, step, params, opt, batches[TRAIN_STEPS])
     profile_train_step(step, params, opt, batches[TRAIN_STEPS],
                        f"{cfg.name} batch {b} seq {s}", parts, keep)
     return totals
+
+
+def check_step_repeats(tag, step, params, opt, batch):
+    """One step taken twice, from the state and from a clone of it made
+    before the step, must give the same bits in every leaf of params, mu,
+    nu and count and in the loss and grad norm: a resumed run replays an
+    uninterrupted one only if every step does.  Runs after the timed steps
+    and the peak-memory reading.  Prints the first leaf that differs, and
+    the check's wall time (clone, two steps, compare)."""
+    from repro_torch.checkpoint import named_leaves
+    from repro_torch.train.optimizer import clone_tree
+    t = time.perf_counter()
+    twin_params, twin_opt = clone_tree(params), clone_tree(opt)
+    runs = []
+    for p, o in ((params, opt), (twin_params, twin_opt)):
+        p, o, m = step(p, o, batch)
+        runs.append(named_leaves({"params": p, "opt": o, "metrics": m}))
+    torch.cuda.synchronize()
+    differ = [(name, float((x.double() - y.double()).abs().max()),
+               int((x != y).sum()))
+              for (name, x), (_, y) in zip(*runs) if not torch.equal(x, y)]
+    print(f"{tag} one step twice from the same state: {len(runs[0])} leaves "
+          f"(params, mu, nu, count, loss, grad norm), bit-identical: "
+          f"{not differ}" + (f"; first that differs: {differ[0][0]} (max "
+                             f"|diff| {differ[0][1]:.3g} at {differ[0][2]} "
+                             f"elements), {len(differ)} leaves differ"
+                             if differ else "")
+          + f"; check wall {time.perf_counter() - t:.3f} s", flush=True)
+    del twin_params, twin_opt, runs
+    torch.cuda.empty_cache()
+    if differ:
+        fail(f"train: one step from the same state differs in "
+             f"{[d[0] for d in differ]}")
 
 
 # (substrings of a kernel's name, part), first match wins
@@ -1275,6 +1326,7 @@ def phase_train_f32_check():
     the chunked path must lie no farther from the card's naive gradient
     than the host's naive gradient does (and within 1e-4 where that spread
     is smaller)."""
+    from repro_torch.checkpoint import named_leaves
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer
@@ -1314,7 +1366,7 @@ def phase_train_f32_check():
     (l0, g0), (l1, g1), (_, gh) = res["naive"], res["chunked"], host
     loss_rel = abs(l1 - l0) / abs(l0)
     rows, bad = [], []
-    for name, a, c, h in zip(_flat_names(params), g0, g1, gh):
+    for (name, _), a, c, h in zip(named_leaves(params), g0, g1, gh):
         norm = float(a.norm())
         if norm == 0.0:                 # olmo's norm gains: not read
             if c.any():
@@ -1352,6 +1404,7 @@ def phase_train_mamba_f32_check():
     must lie within twice that spread of the card's plain gradient, and
     within 1e-4 where twice the spread is smaller; a wrong gradient is off
     by its own size."""
+    from repro_torch.checkpoint import named_leaves
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_scan as ss
@@ -1393,7 +1446,7 @@ def phase_train_mamba_f32_check():
     (l0, g0), (l1, g1), (_, gh) = res["plain"], res["kernel"], host
     loss_rel = abs(l1 - l0) / abs(l0)
     rows, bad = [], []
-    for name, a, c, h in zip(_flat_names(params), g0, g1, gh):
+    for (name, _), a, c, h in zip(named_leaves(params), g0, g1, gh):
         norm = float(a.norm())
         rel, spread = float((c - a).norm()) / norm, float((h - a).norm()) / norm
         rows.append(f"{name} {rel:.3g} (host {spread:.3g})")
@@ -1410,23 +1463,14 @@ def phase_train_mamba_f32_check():
              f"{bad or 'the loss'}")
 
 
-def _flat_names(tree, prefix=""):
-    out = []
-    for k in sorted(tree):
-        if isinstance(tree[k], dict):
-            out += _flat_names(tree[k], f"{prefix}{k}/")
-        else:
-            out.append(prefix + k)
-    return out
-
-
 TRAIN_LINE = re.compile(r"step=(\d+) loss=(\d+\.\d{4}) dt=\d+ms( STRAGGLER)?")
 
 
-def run_train_driver(argv):
-    """The train driver in this process, on the card; its step lines must
-    have the JAX driver's format and finite losses."""
+def train_driver_lines(argv, label=None):
+    """The train driver in this process, on the card: (rc, its lines),
+    each printed."""
     from repro_torch.launch import train
+    label = label or " ".join(argv)
     buf = io.StringIO()
     t = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -1434,14 +1478,178 @@ def run_train_driver(argv):
     torch.cuda.synchronize()
     lines = buf.getvalue().strip().splitlines()
     for line in lines:
-        print(f"[train driver {' '.join(argv)}] {line}", flush=True)
-    print(f"[train driver {' '.join(argv)}] main() wall "
+        print(f"[train driver {label}] {line}", flush=True)
+    print(f"[train driver {label}] rc {rc}, main() wall "
           f"{(time.perf_counter() - t) * 1e3:.3f} ms", flush=True)
+    return rc, lines
+
+
+def run_train_driver(argv):
+    """The train driver in this process, on the card; its step lines must
+    have the JAX driver's format and finite losses."""
+    rc, lines = train_driver_lines(argv)
     steps = [TRAIN_LINE.fullmatch(line) for line in lines[:-1]]
     if rc != 0 or not lines or lines[-1] != "training done" \
             or not all(steps) or not all(np.isfinite(float(m.group(2)))
                                          for m in steps):
         fail(f"train driver {argv}: rc {rc}, unexpected output")
+
+
+def step_losses(lines):
+    """{step: the loss as printed} of a driver's step lines."""
+    return {int(m.group(1)): m.group(2)
+            for m in map(TRAIN_LINE.fullmatch, lines) if m}
+
+
+def state_like(cfg, seed):
+    """A training state of ``cfg`` on the card to restore into: params
+    from another seed, zero moments."""
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig, init_state
+    params = get_model(cfg).init(cfg, torch.Generator("cuda")
+                                 .manual_seed(seed), "cuda")
+    return {"params": params, "opt": init_state(params, AdamWConfig())}
+
+
+def crash_resume(arch):
+    """Crash after step 5 of 8 (checkpoints after steps 2 and 5), resume,
+    and an uninterrupted run, all through the train driver on the card;
+    the final checkpoints (step 7) restored into card tensors must hold
+    the same bits, and the resumed losses must be the uninterrupted
+    ones."""
+    from repro_torch.checkpoint import CheckpointStore, named_leaves
+    from repro_torch.configs import get_config
+    tag = f"[checkpoint {arch} SMOKE]"
+    base = ["--arch", arch, "--smoke", "--steps", "8", "--batch", "2",
+            "--seq", "32", "--ckpt-every", "3"]
+    with tempfile.TemporaryDirectory(prefix="ckpt_") as root:
+        crashed, whole = (os.path.join(root, d) for d in ("crashed", "whole"))
+        rc, lines = train_driver_lines(base + ["--ckpt-dir", crashed,
+                                               "--fail-at", "5"],
+                                       f"{arch} --fail-at 5")
+        if rc != 42 or sorted(step_losses(lines)) != list(range(6)):
+            fail(f"{tag} the crashed run: rc {rc}, {lines}")
+        rc, resumed = train_driver_lines(base + ["--ckpt-dir", crashed,
+                                                 "--resume"],
+                                         f"{arch} --resume")
+        if rc != 0 or resumed[0] != "resumed from step 5" \
+                or sorted(step_losses(resumed)) != [6, 7] \
+                or resumed[-1] != "training done":
+            fail(f"{tag} the resumed run: rc {rc}, {resumed}")
+        rc, full = train_driver_lines(base + ["--ckpt-dir", whole],
+                                      f"{arch} uninterrupted")
+        want = step_losses(full)
+        if rc != 0 or sorted(want) != list(range(8)):
+            fail(f"{tag} the uninterrupted run: rc {rc}, {full}")
+        got = step_losses(lines) | step_losses(resumed)
+        if got != want:
+            fail(f"{tag} losses {got} against uninterrupted {want}")
+        cfg = get_config(arch, smoke=True)
+        trees = []
+        for i, d in enumerate((crashed, whole)):
+            step, tree = CheckpointStore(d, recover=True).restore(
+                like=state_like(cfg, SEED + 1 + i))
+            if step != 7:
+                fail(f"{tag} {d}: latest checkpoint {step}, not 7")
+            trees.append(named_leaves(tree))
+        differ = [name for (name, x), (_, y) in zip(*trees)
+                  if x.device.type != "cuda" or not torch.equal(x, y)]
+    print(f"{tag} crashed after step 5 (rc 42), resumed from step 5, losses "
+          f"of steps 0-7 equal to the uninterrupted run's; step 7 restored "
+          f"into card tensors: {len(trees[0])} leaves, bit-identical to the "
+          f"uninterrupted run's: {not differ}", flush=True)
+    if differ:
+        fail(f"{tag} the resumed run's final state differs in {differ}")
+
+
+CKPT_LAYERS = 2                # mamba2-370m cut from 48 layers
+# One save: the engine's rate falls as the store fills, and three saves of
+# this state would outlast the time this script may take
+# (tools/ckpt_throughput.py takes more).
+CKPT_SAVES = 1
+
+
+def tree_bytes(tree):
+    from repro_torch.checkpoint import named_leaves
+    return sum(x.numel() * x.element_size() for _, x in named_leaves(tree))
+
+
+def phase_checkpoint_throughput(card, saves=CKPT_SAVES):
+    """``saves`` saves (keep_last=2), a recovery and a restore into card
+    tensors of the full-width mamba2-370m training state (f32 params after
+    one step, both AdamW moments, the count), cut to CKPT_LAYERS layers.
+    Host time on the card's machine (the store is pure Python; the device
+    keeps every file's bytes in host memory too): printed, with the card's
+    name and power limit, and the full-width olmo-1b state's save time at
+    the measured rate as an extrapolation."""
+    from repro_torch.checkpoint import (CheckpointConfig, CheckpointStore,
+                                        named_leaves)
+    from repro_torch.configs import get_config
+    from repro_torch.train import build_train_step, synthetic_batch
+    cfg = dataclasses.replace(get_config("mamba2-370m"),
+                              n_layers=CKPT_LAYERS)
+    b, s = TRAIN
+    params, opt, step = train_setup(cfg, b, s)
+    params, opt, _ = step(params, opt, synthetic_batch(cfg, 0, b, s))
+    torch.cuda.synchronize()
+    state = {"params": params, "opt": opt}
+    nbytes = tree_bytes(state)
+    tag = (f"[checkpoint mamba2-370m full width, {CKPT_LAYERS} of 48 layers "
+           f"(cut: depth), {nbytes / 2**30:.3f} GiB]")
+    t = time.perf_counter()
+    host = [x.cpu().numpy().tobytes() for _, x in named_leaves(state)]
+    copy_s = time.perf_counter() - t
+    del host
+    with tempfile.TemporaryDirectory(prefix="ckpt_") as root:
+        st = CheckpointStore(root, CheckpointConfig(keep_last=2))
+        save_s = []
+        for i in range(saves):
+            t = time.perf_counter()
+            st.save(i, state, extra={"loss": 0.0})
+            save_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        st.db.flush_all()
+        flush_s = time.perf_counter() - t
+        usage = st.db.space_usage()
+        disk = sum(os.path.getsize(os.path.join(root, f))
+                   for f in os.listdir(root))
+        gc_runs = int(st.db.stats_counters["gc_runs"])
+        del st
+        t = time.perf_counter()
+        st = CheckpointStore(root, CheckpointConfig(keep_last=2),
+                             recover=True)
+        recover_s = time.perf_counter() - t
+        like = state_like(cfg, SEED + 1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got, tree = st.restore(like=like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        differ = [name for (name, x), (_, y) in zip(named_leaves(tree),
+                                                    named_leaves(state))
+                  if not torch.equal(x, y)]
+        del st
+    rate = [nbytes / x / 1e6 for x in save_s]
+    _, (p_abs, o_abs, _) = build_train_step(get_config("olmo-1b"), 1, 8)
+    olmo = tree_bytes({"params": p_abs, "opt": o_abs})
+    print(f"{tag} on {card}: saves "
+          + ", ".join(f"{x:.3f} s ({r:.1f} MB/s)" for x, r in zip(save_s,
+                                                                 rate))
+          + f" (of which the state's copy to host bytes alone takes "
+          f"{copy_s:.3f} s); flush_all {flush_s:.3f} s; {disk / 1e9:.3f} GB "
+          "on disk "
+          f"({disk / nbytes:.2f}x the state), global_garbage_ratio "
+          f"{usage['global_garbage_ratio']:.4f}, gc_runs {gc_runs} after "
+          f"{saves} save(s) with keep_last=2; recovery (open with "
+          f"recover=True) {recover_s:.3f} s; restore of step {got} into card "
+          f"tensors {restore_s:.3f} s ({nbytes / restore_s / 1e6:.1f} MB/s), "
+          f"bit-identical: {not differ}", flush=True)
+    print(f"{tag} extrapolation, not measured: the full-width olmo-1b "
+          f"training state ({olmo / 2**30:.2f} GiB) would take at least "
+          f"{olmo / (max(rate) * 1e6):.0f} s a save at this rate (at "
+          "least: the rate falls as the store fills)", flush=True)
+    if got != saves - 1 or differ:
+        fail(f"{tag} restored step {got}, leaves that differ {differ}")
 
 
 def run_serve(argv, expect):
@@ -1799,10 +2007,21 @@ def main() -> int:
     phase_train_mamba_f32_check()
     run_train_driver(["--arch", "mamba2-370m", "--smoke", "--steps", "4",
                       "--batch", "2", "--seq", "32"])
+    torch.cuda.empty_cache()
+
+    # Checkpoints: crash and resume through the train driver, then the
+    # store's throughput at full width.
+    card = sh("nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader").splitlines()[0]
+    t = time.perf_counter()
+    crash_resume("olmo-1b")
+    crash_resume("mamba2-370m")
+    phase_checkpoint_throughput(card)
+    print(f"[checkpoint] phase wall {time.perf_counter() - t:.3f} s",
+          flush=True)
 
     print(json.dumps({"kernels": records}))
-    print(sh("nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader").splitlines()[0])
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -48,6 +48,11 @@ def tree_unflatten(like, leaves):
     return build(like)
 
 
+def clone_tree(tree):
+    """A copy of a nested dict of tensors, each leaf cloned."""
+    return tree_unflatten(tree, [x.clone() for x in tree_leaves(tree)])
+
+
 def init_state(params, cfg: AdamWConfig) -> Dict:
     """Zero moments in ``cfg.moment_dtype`` and a zero int32 count, on the
     params' device (``meta`` params give meta state)."""

@@ -1037,3 +1037,89 @@ def test_train_driver_on_the_card(cuda):
                          "--seq", "32"])
     lines = buf.getvalue().splitlines()
     assert rc == 0 and lines[-1] == "training done" and len(lines) == 4
+
+
+@pytest.mark.parametrize("arch,seq", [("olmo-1b", 200), ("mamba2-370m", 64)])
+def test_train_step_repeats_bit_for_bit(cuda, arch, seq):
+    """Two train steps, each from its own clone of the same params, AdamW
+    state and batch, give the same bits in every leaf of params, mu, nu
+    and count, and the same loss and grad norm: what a resumed run needs
+    to replay an uninterrupted one."""
+    from repro_torch.checkpoint import named_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import (TrainConfig, build_train_step,
+                                   init_state, synthetic_batch)
+    from repro_torch.train.optimizer import clone_tree
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              attn_impl="chunked")
+    tc = TrainConfig()
+    params = get_model(cfg).init(cfg, torch.Generator(cuda).manual_seed(0),
+                                 cuda)
+    step, _ = build_train_step(cfg, 2, seq, tc, cuda)
+    opt = init_state(params, tc.adamw)
+    # one step first, so that the moments are not zero
+    params, opt, _ = step(params, opt, synthetic_batch(cfg, 0, 2, seq))
+    batch = synthetic_batch(cfg, 1, 2, seq)
+    runs = []
+    for _ in range(2):
+        p, o, m = step(clone_tree(params), clone_tree(opt), batch)
+        runs.append({"params": p, "opt": o, "metrics": m})
+    torch.cuda.synchronize()
+    (a, b) = (named_leaves(r) for r in runs)
+    assert [n for n, _ in a] == [n for n, _ in b] and len(a) > 10
+    assert [n for (n, x), (_, y) in zip(a, b) if not torch.equal(x, y)] == []
+    assert np.isfinite(float(runs[0]["metrics"]["loss"]))
+
+
+def test_train_driver_crash_resume_on_the_card(cuda, tmp_path):
+    """olmo-1b SMOKE through the train driver on the card: crash after
+    step 5, resume, and end with the bits of a run never interrupted."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.launch import train
+
+    def run(*flags):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(["--smoke", "--steps", "8", "--batch", "2",
+                             "--seq", "32", "--ckpt-every", "3", *flags])
+        return rc, buf.getvalue().splitlines()
+    crashed, whole = str(tmp_path / "crashed"), str(tmp_path / "whole")
+    rc, lines = run("--ckpt-dir", crashed, "--fail-at", "5")
+    assert rc == 42 and lines[-1].startswith("simulated failure")
+    rc, resumed = run("--ckpt-dir", crashed, "--resume")
+    assert rc == 0 and resumed[0] == "resumed from step 5"
+    assert [x.split()[0] for x in resumed[1:3]] == ["step=6", "step=7"]
+    assert resumed[3:] == ["training done"]
+    rc, full = run("--ckpt-dir", whole)
+    assert rc == 0 and len(full) == 9
+    assert [x.split()[1] for x in resumed[1:3]] == \
+        [x.split()[1] for x in full[6:8]]
+    (sa, a), (sb, b) = (CheckpointStore(d, recover=True).restore()
+                        for d in (crashed, whole))
+    assert sa == sb == 7 and sorted(a) == sorted(b)
+    for name in b:
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_checkpoint_saves_and_restores_card_tensors(cuda, dtype, tmp_path):
+    from repro_torch.checkpoint import (CheckpointConfig, CheckpointStore,
+                                        named_leaves)
+    gen = torch.Generator(cuda).manual_seed(0)
+    tree = {"w": torch.randn((300, 3000), generator=gen, device=cuda)
+            .to(dtype),            # ~1.8 or 3.6 MB: more than one chunk
+            "b": {"x": torch.randn((7,), generator=gen, device=cuda)
+                  .to(dtype)},
+            "count": torch.full((), 3, dtype=torch.int32, device=cuda)}
+    st = CheckpointStore(str(tmp_path / "ckpt"), CheckpointConfig())
+    st.save(4, tree)
+    like = {"w": torch.zeros((300, 3000), dtype=dtype, device=cuda),
+            "b": {"x": torch.zeros((7,), dtype=dtype, device=cuda)},
+            "count": torch.zeros((), dtype=torch.int32, device=cuda)}
+    step, got = CheckpointStore(str(tmp_path / "ckpt"),
+                                recover=True).restore(like=like)
+    assert step == 4 and got is like
+    for (name, x), (_, y) in zip(named_leaves(got), named_leaves(tree)):
+        assert x.device.type == "cuda" and x.dtype == y.dtype, name
+        assert torch.equal(x, y), name

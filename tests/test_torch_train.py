@@ -24,6 +24,7 @@ held to 2e-3 relative (measured ≤ 4.8e-4), grad norms to 60%, params to
 import contextlib
 import dataclasses
 import io
+import os
 import re
 
 import jax
@@ -38,6 +39,7 @@ from repro.models import get_model as j_get_model
 from repro.train import data as j_data
 from repro.train import optimizer as j_opt
 from repro.train import step as j_step
+from repro_torch.checkpoint import CheckpointStore
 from repro_torch.configs import get_config
 from repro_torch.launch import train as t_train
 from repro_torch.models import get_model
@@ -347,8 +349,69 @@ def test_train_driver_fail_at_exits_42():
     assert len(lines) == 3 and "training done" not in lines
 
 
-@pytest.mark.parametrize("flags", [["--ckpt-dir", "ckpt"], ["--resume"],
-                                   ["--ckpt-every", "2"]])
-def test_train_driver_refuses_checkpoint_flags(flags):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_train.main(DRIVER + flags)
+def _steps(lines):
+    return [int(m.group(1)) for m in map(STEP_LINE.fullmatch, lines) if m]
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-370m"])
+def test_train_driver_crash_resume_replays_identically(arch, tmp_path):
+    """Crash after step 5 (saves after steps 2 and 5), resume, and end
+    with the same bits in every leaf as a run never interrupted."""
+    base = DRIVER + ["--arch", arch, "--steps", "8", "--ckpt-every", "3"]
+    crashed, whole = str(tmp_path / "crashed"), str(tmp_path / "whole")
+    rc, lines = _driver(base + ["--ckpt-dir", crashed, "--fail-at", "5"])
+    assert rc == 42 and _steps(lines) == [0, 1, 2, 3, 4, 5]
+    assert lines[-1].startswith("simulated failure")
+    assert CheckpointStore(crashed, recover=True).steps() == [2, 5]
+    rc, resumed = _driver(base + ["--ckpt-dir", crashed, "--resume"])
+    assert rc == 0 and resumed[0] == "resumed from step 5"
+    assert _steps(resumed) == [6, 7] and resumed[-1] == "training done"
+    rc, full = _driver(base + ["--ckpt-dir", whole])
+    assert rc == 0 and _steps(full) == list(range(8))
+    loss = {int(m.group(1)): m.group(2)
+            for m in map(STEP_LINE.fullmatch, lines + full) if m}
+    for line in resumed[1:3]:
+        m = STEP_LINE.fullmatch(line)
+        assert m.group(2) == loss[int(m.group(1))], line
+    a = CheckpointStore(crashed, recover=True)
+    b = CheckpointStore(whole, recover=True)
+    assert a.steps() == b.steps() == [5, 7]
+    (sa, got), (sb, want) = a.restore(), b.restore()
+    assert sa == sb == 7 and sorted(got) == sorted(want)
+    assert {n.split("/")[0] for n in got} == {"params", "opt"}
+    assert int(got["opt/count"]) == 8
+    for name in want:
+        assert got[name].dtype == want[name].dtype, name
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+def test_train_driver_refuses_a_store_without_resume(tmp_path):
+    """A run without --resume into a directory that holds a store is
+    refused and writes nothing there (a fresh store over the old one
+    would leave a later recovery replaying the first run's manifest);
+    --resume then continues from the latest checkpoint."""
+    ckpt = str(tmp_path / "ckpt")
+    rc, _ = _driver(DRIVER + ["--steps", "3", "--ckpt-every", "2",
+                              "--ckpt-dir", ckpt])
+    assert rc == 0
+    files = {f: os.path.getsize(os.path.join(ckpt, f))
+             for f in os.listdir(ckpt)}
+    with pytest.raises(SystemExit) as refused:
+        _driver(DRIVER + ["--steps", "5", "--ckpt-dir", ckpt])
+    assert refused.value.code == 2
+    assert {f: os.path.getsize(os.path.join(ckpt, f))
+            for f in os.listdir(ckpt)} == files
+    rc, lines = _driver(DRIVER + ["--steps", "5", "--ckpt-dir", ckpt,
+                                  "--resume"])
+    assert rc == 0 and lines[0] == "resumed from step 2"
+    assert _steps(lines) == [3, 4] and lines[-1] == "training done"
+    assert CheckpointStore(ckpt, recover=True).steps() == [2, 4]
+
+
+def test_train_driver_resume_on_an_empty_directory_starts_at_0(tmp_path):
+    ckpt = str(tmp_path / "empty")
+    rc, lines = _driver(DRIVER + ["--steps", "2", "--ckpt-dir", ckpt,
+                                  "--resume"])
+    assert rc == 0 and _steps(lines) == [0, 1]
+    assert not any(line.startswith("resumed") for line in lines)
+    assert CheckpointStore(ckpt, recover=True).steps() == [1]
