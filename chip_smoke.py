@@ -56,7 +56,27 @@ Phases, in order; any failure exits non-zero:
    width and 2 layers, held to f32's own spread; run the train driver with
    ``--arch mamba2-370m --smoke``.  One more step taken twice from the same
    state must give the same bits, as in phase 8.
-10. Checkpoints (``[checkpoint]``): crash and resume through the train
+10. The MoE family.  ``[moe layer]``: one granite-moe-3b-a800m MoE FFN
+   layer at full width (d_model 1536, 40 experts, top 8, ff 512) on 8192
+   tokens, forward and backward in f32 against the host CPU (tokens whose
+   kept experts differ, near-ties, counted and left out), the dropped
+   pairs counted, two runs bit-identical in f32 and bf16, the bf16 layer
+   timed.  Then granite-moe-3b-a800m at full width: the prefill (batch 2,
+   seq 4096, bf16, K3 once a layer); dense-cache decode against the
+   chunked forward in f32 (32 tokens; the forward drops pairs that decode
+   never does, so it is held before the first drop and to a forward whose
+   capacity drops nothing); the serve driver with ``--full`` (K1 once a
+   decode step, K2 once a compaction); 4 training steps (batch 2, seq
+   4096, bf16 compute, f32 params, remat "full": K3 64 and K3-bwd 32
+   launches a step), peak memory and one step profiled by part, the MoE's
+   routing, dispatch, expert products and combine apart from attention and
+   AdamW; one step taken twice from one state with the depth cut to 8 of
+   32 layers (the whole state does not fit twice); the train driver at
+   SMOKE size.  Last, grok-1-314b's prefill at full width cut to 2 of 64
+   layers (batch 1, seq 2048: 8 experts of ff 32768, K3 at D 128 over 8 KV
+   heads).  K3 and K3-bwd are held against their plain versions in phase 2
+   at granite-moe's and grok-1's shapes too, and timed beside SDPA.
+11. Checkpoints (``[checkpoint]``): crash and resume through the train
    driver on the card for olmo-1b and mamba2-370m at SMOKE size (crash
    after step 5 of 8 with a checkpoint every 3 steps, resume, and an
    uninterrupted run): the resumed run prints ``resumed from step 5`` and
@@ -88,6 +108,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# granite-moe-3b-a800m's full-width training step peaks at 69.09 of 79.18
+# GiB; the caching allocator's fragmentation can hold more than the rest
+# (12.4 GiB reserved and unused in one run), so segments grow in place.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -95,7 +119,15 @@ import torch  # noqa: E402
 SERVE_FULL = ["--arch", "olmo-1b", "--full"]
 EXPECT_FULL = ("completed=24/24 decode_steps=62 compaction_steps=12 "
                "compaction_dmas=2880 alloc_failures=0")
-PREFILL = (2, 4096)            # olmo-1b and mamba2-370m prefill (batch, seq)
+PREFILL = (2, 4096)            # olmo-1b, mamba2-370m, granite-moe prefill
+GROK_PREFILL = (1, 2048)       # grok-1-314b prefill (batch, seq), 2 layers
+TRAIN = (2, 4096)              # training (batch, seq), every model
+TRAIN_STEPS = 4
+SERVE_GRANITE = ["--arch", "granite-moe-3b-a800m", "--full"]
+# The traffic and pages are olmo's, so are the counts; compaction_dmas is
+# 90 copies a plane x n_layers x 2 planes (32 layers).
+EXPECT_GRANITE = ("completed=24/24 decode_steps=62 compaction_steps=12 "
+                  "compaction_dmas=5760 alloc_failures=0")
 SERVE_SMOKE = ["--arch", "olmo-1b"]
 EXPECT_SMOKE = ("completed=24/24 decode_steps=62 compaction_steps=12 "
                 "compaction_dmas=360 alloc_failures=0")
@@ -507,6 +539,9 @@ def phase_flash_attention():
         ("olmo-1b prefill", *PREFILL, 16, 16, 128, bf16, True, 2e-2),
         ("starcoder2-3b prefill", 1, 2048, 24, 2, 128, bf16, True, 2e-2),
         ("phi3-mini D=96", 1, 2048, 32, 32, 96, bf16, True, 2e-2),
+        ("granite-moe-3b-a800m prefill", *PREFILL, 24, 8, 64, bf16, True,
+         2e-2),
+        ("grok-1-314b prefill", *GROK_PREFILL, 48, 8, 128, bf16, True, 2e-2),
         ("ragged f32 non-causal", 1, 1000, 8, 2, 64, f32, False, 2e-3),
     ]
     record = None
@@ -600,6 +635,9 @@ def phase_flash_attention_bwd():
         ("olmo-1b training", *PREFILL, 16, 16, 128, bf16, True, 1e-2),
         ("starcoder2-3b GQA", 1, 2048, 24, 2, 128, bf16, True, 1e-2),
         ("phi3-mini D=96", 1, 2048, 32, 32, 96, bf16, True, 1e-2),
+        ("granite-moe-3b-a800m training", *TRAIN, 24, 8, 64, bf16, True,
+         1e-2),
+        ("grok-1-314b GQA", *GROK_PREFILL, 48, 8, 128, bf16, True, 1e-2),
         ("ragged f32 causal", 1, 200, 8, 2, 64, f32, True, 1e-4),
         ("ragged f32 full", 1, 200, 8, 2, 64, f32, False, 1e-4),
     ]
@@ -1017,44 +1055,6 @@ def full_params(cfg):
     return transformer.init(cfg, gen, "cuda")
 
 
-def phase_prefill_olmo(params):
-    """The prefill path at full olmo-1b width; returns K3's launches."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.train import build_prefill_step, synthetic_batch
-    cfg = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked")
-    b, s = PREFILL
-    step, _ = build_prefill_step(cfg, b, s)
-    batch = synthetic_batch(cfg, 0, b, s)
-    batch.pop("targets")
-    step(params, batch)                        # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    # The path: counts set to 0 just before, read just after.
-    reset_counts()
-    t = time.perf_counter()
-    e0.record()
-    logits = step(params, batch)
-    e1.record()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t) * 1e3
-    launches = fa.launches
-    finite = bool(torch.isfinite(logits).all())
-    print(f"[prefill olmo-1b] batch {b} seq {s} bf16: logits "
-          f"{tuple(logits.shape)} {logits.dtype} finite={finite}; "
-          f"flash_attention launches={launches}; one call "
-          f"{e0.elapsed_time(e1):.3f} ms by CUDA events ({wall:.3f} ms host "
-          f"wall); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    if tuple(logits.shape) != (b, cfg.vocab) or not finite:
-        fail("prefill olmo-1b: logits of the wrong shape or not finite")
-    if launches != cfg.n_layers:
-        fail(f"prefill olmo-1b: flash_attention launched {launches} times "
-             f"for {cfg.n_layers} layers")
-    return launches
-
-
 def phase_prefill_f32_check(params):
     """K3 inside the model: the chunked forward (K3, f32) against the naive
     one (plain PyTorch, f32) at full olmo-1b width; then dense-cache decode
@@ -1120,45 +1120,6 @@ def phase_prefill_f32_check(params):
         fail(f"decode olmo-1b: decode and forward differ by {err:.3g}")
 
 
-def phase_prefill_starcoder():
-    """GQA at full width: starcoder2-3b prefill (24 heads over 2 KV
-    heads); returns K3's launches."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.train import build_prefill_step, synthetic_batch
-    cfg = dataclasses.replace(get_config("starcoder2-3b"),
-                              attn_impl="chunked")
-    params = full_params(cfg)
-    step, _ = build_prefill_step(cfg, 1, 2048)
-    batch = synthetic_batch(cfg, 0, 1, 2048)
-    batch.pop("targets")
-    step(params, batch)                        # warm-up
-    torch.cuda.synchronize()
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    reset_counts()
-    e0.record()
-    logits = step(params, batch)
-    e1.record()
-    torch.cuda.synchronize()
-    launches = fa.launches
-    finite = bool(torch.isfinite(logits).all())
-    print(f"[prefill starcoder2-3b] batch 1 seq 2048 bf16, "
-          f"{cfg.n_heads} heads over {cfg.kv_heads} KV heads: logits "
-          f"{tuple(logits.shape)} finite={finite}; flash_attention "
-          f"launches={launches}; one call {e0.elapsed_time(e1):.3f} ms by "
-          "CUDA events", flush=True)
-    if tuple(logits.shape) != (1, cfg.vocab) or not finite:
-        fail("prefill starcoder2-3b: logits of the wrong shape or not finite")
-    if launches != cfg.n_layers:
-        fail(f"prefill starcoder2-3b: flash_attention launched {launches} "
-             f"times for {cfg.n_layers} layers")
-    return launches
-
-
-TRAIN = (2, 4096)              # olmo-1b and mamba2-370m training (batch, seq)
-TRAIN_STEPS = 4
-
-
 def train_setup(cfg, b, s, lr=1e-3, seed=SEED):
     """Params from seed, AdamW state and the train step, all on the card."""
     from repro_torch.models import get_model
@@ -1171,15 +1132,16 @@ def train_setup(cfg, b, s, lr=1e-3, seed=SEED):
     return params, init_state(params, tc.adamw), step
 
 
-def phase_train(cfg, kernels, parts, keep):
+def phase_train(cfg, kernels, parts, keep, labels=None, repeat=True):
     """The training path at full width: TRAIN_STEPS steps of
     build_train_step (batch and seq TRAIN, AdamW lr 1e-3, params from SEED,
     synthetic_batch steps 0-4), each step's loss, grad norm, time by CUDA
     events and launches, then the same step taken twice from one state
-    (check_step_repeats) and one profiled step.  ``kernels`` is
-    [(name, its count now, its launches a step)]; ``parts`` and ``keep``
-    go to profile_train_step.  Returns each kernel's launches over the
-    run."""
+    (check_step_repeats; not where ``repeat`` is false: a model whose
+    state cannot be held twice) and one profiled step.  ``kernels`` is
+    [(name, its count now, its launches a step)]; ``parts``, ``keep`` and
+    ``labels`` go to profile_train_step.  Returns each kernel's launches
+    over the run."""
     from repro_torch.train import synthetic_batch
     b, s = TRAIN
     tag = f"[train {cfg.name}]"
@@ -1222,9 +1184,10 @@ def phase_train(cfg, kernels, parts, keep):
           + " ".join(f"{name}={n}" for (name, _, _), n in zip(kernels,
                                                                 totals)),
           flush=True)
-    check_step_repeats(tag, step, params, opt, batches[TRAIN_STEPS])
+    if repeat:
+        check_step_repeats(tag, step, params, opt, batches[TRAIN_STEPS])
     profile_train_step(step, params, opt, batches[TRAIN_STEPS],
-                       f"{cfg.name} batch {b} seq {s}", parts, keep)
+                       f"{cfg.name} batch {b} seq {s}", parts, keep, labels)
     return totals
 
 
@@ -1271,12 +1234,65 @@ TRAIN_PARTS_SSM = ((("ssd_bwd",), "K4-bwd (ssd_scan_bwd)"),
                    PRODUCT_PART)
 
 
-def profile_train_step(step, params, opt, batch, label, parts, keep):
-    """Where one full-width training step spends device time, by kernel
-    name: the parts (the backward kernel, the forward kernel, the matrix
-    products) and the rest (elementwise passes, casts, reductions, the
-    optimizer's update); then the AdamW update alone, by CUDA events.
-    Printed only."""
+# Profiler ranges (record_function) of the port's model and train step.
+RANGES = ("attention", "ffn", "moe.route", "moe.dispatch", "moe.experts",
+          "moe.combine", "adamw")
+REST = "elementwise, casts, reductions, optimizer"
+
+
+def device_parts(prof, parts, labels, fallback=(PRODUCT_PART,)):
+    """{part: device ms} of one profiled run.  A kernel goes to the first
+    of ``parts`` [((name substrings), part)] that its name matches; else,
+    where ``labels`` {range: part} names one, to the innermost profiler
+    range around the op that launched it, or, in the backward pass, around
+    the forward op whose autograd node launched it (matched by sequence
+    number and thread, as the profiler matches backward stack traces; a
+    remat recompute runs under the ranges again); else to the first of
+    ``fallback`` that its name matches, else to REST."""
+    from torch.autograd import DeviceType
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def nearest(e):
+        while e is not None and not (e.name in labels or e.scope == 1):
+            e = e.cpu_parent
+        return e
+
+    forward = {}
+    for e in cpu:
+        if e.sequence_nr >= 0 and e.scope != 1:
+            up = nearest(e)
+            if up is not None and up.scope != 1:
+                forward.setdefault((e.sequence_nr, e.thread), up.name)
+    totals = {}
+    for e in cpu:
+        for kernel in e.kernels:
+            if kernel.name in RANGES:
+                continue
+            part = next((p for keys, p in parts
+                         if any(key in kernel.name for key in keys)), None)
+            if part is None and labels:
+                up = nearest(e)
+                if up is not None and up.scope == 1:
+                    up = forward.get((up.sequence_nr, up.fwd_thread))
+                elif up is not None:
+                    up = up.name
+                part = labels.get(up)
+            if part is None:
+                part = next((p for keys, p in fallback
+                             if any(key in kernel.name for key in keys)),
+                            REST)
+            totals[part] = totals.get(part, 0.0) + kernel.duration / 1e3
+    return totals
+
+
+def profile_train_step(step, params, opt, batch, label, parts, keep,
+                       labels=None):
+    """Where one full-width training step spends device time
+    (device_parts): by kernel name (the backward kernel, the forward
+    kernel, the matrix products), by the model's profiler ranges where
+    ``labels`` names them, and the rest (elementwise passes, casts,
+    reductions, the optimizer's update); then the AdamW update alone, by
+    CUDA events.  Printed only."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.train import AdamWConfig, apply_updates
@@ -1289,12 +1305,10 @@ def profile_train_step(step, params, opt, batch, label, parts, keep):
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name = device_time_by_name(prof)
     busy_ms = sum(us for us, _ in by_name.values()) / 1e3
-    totals = {}
-    for name, (us, _) in by_name.items():
-        part = next((p for keys, p in parts
-                     if any(key in name for key in keys)),
-                    "elementwise, casts, reductions, optimizer")
-        totals[part] = totals.get(part, 0.0) + us / 1e3
+    totals = device_parts(prof, parts, labels or {})
+    unlinked = busy_ms - sum(totals.values())
+    if abs(unlinked) > 1e-3:
+        totals["kernels linked to no op"] = unlinked
     print(f"[profile] train step {label}: wall {wall_ms:.3f} ms, device "
           f"busy {busy_ms:.3f} ms ({100 * (1 - busy_ms / wall_ms):.1f}% "
           f"idle) in {sum(n for _, n in by_name.values())} device "
@@ -1668,10 +1682,13 @@ def run_serve(argv, expect):
 
 
 def device_time_by_name(prof):
+    """{kernel name: (device us, count)}; a profiler range's own span on the
+    device timeline (a user annotation) is not a kernel."""
     from torch.autograd import DeviceType
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.name not in RANGES \
+                and not getattr(e, "is_user_annotation", False):
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.device_time, n + 1)
     return by_name
@@ -1922,6 +1939,365 @@ def phase_profile_mamba(params):
     print_ranked(by_name, ["ssd_scan"])
 
 
+GRANITE = "granite-moe-3b-a800m"
+MOE_LEAVES = ("router", "wg", "wi", "wo")
+MOE_PARTS = {"attention": "attention (norm, projections, RoPE)",
+             "ffn": "MoE: ffn norm and weight casts",
+             "moe.route": "MoE: routing and sort",
+             "moe.dispatch": "MoE: dispatch",
+             "moe.experts": "MoE: expert products",
+             "moe.combine": "MoE: combine",
+             "adamw": "AdamW"}
+
+
+def moe_kept(plan, n_experts):
+    """(N, E) bool on the host: the experts that each token's kept pairs
+    went to."""
+    kept = torch.zeros((plan["idx"].shape[0], n_experts), dtype=torch.bool)
+    experts = plan["idx"].reshape(-1)[plan["order"]]
+    kept[plan["tok"].cpu(), experts.cpu()] = plan["keep"].cpu()
+    return kept
+
+
+def moe_layer_run(params, x, dy, cfg):
+    """One MoE FFN layer forward and backward: [y, dx, d router, d wg, d wi,
+    d wo]."""
+    from repro_torch.models import modules
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    xr = x.detach().requires_grad_()
+    y = modules.moe_ffn(leaves, xr, cfg)
+    grads = torch.autograd.grad(y, [xr] + [leaves[k] for k in MOE_LEAVES],
+                                dy)
+    return [y.detach()] + list(grads)
+
+
+def phase_moe_layer():
+    """One granite-moe-3b-a800m MoE FFN layer at full width (d_model 1536,
+    40 experts, top 8, ff 512), weights and 8192 tokens (one training
+    batch, 2 x 4096) from SEED, f32: forward and backward on the card
+    against the same function on the host CPU, for y, dx and the four
+    weights' gradients.  A token whose kept experts differ between the two
+    (a near-tie of its 8th and 9th logits, or a capacity edge it shifts)
+    is counted and left out: its rows of y and dx are not compared and its
+    dy is zero on both sides, so that every weight's gradient sums the same
+    pairs; fewer than 0.1% may differ.  Each tensor is held to 1e-4 of its
+    largest magnitude (f32, sums in other orders).  Forward and backward
+    run twice, in f32 and in bf16, and must give the same bits; then the
+    bf16 layer (the training path's) is timed by CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import modules
+    tol, n = 1e-4, TRAIN[0] * TRAIN[1]
+    base = get_config(GRANITE)
+    cfg = dataclasses.replace(base, compute_dtype=torch.float32)
+    e, d = cfg.n_experts, cfg.d_model
+    gen = torch.Generator("cuda").manual_seed(SEED + 7)
+    params = modules.materialize(modules.ffn_specs(cfg), gen, device="cuda")
+    x = torch.randn((1, n, d), generator=gen, device="cuda")
+    dy = torch.randn((1, n, d), generator=gen, device="cuda")
+    host = {k: v.cpu() for k, v in params.items()}
+    plans = [modules.moe_route((xs[0] @ p["router"]).float(), cfg)
+             for p, xs in ((params, x), (host, x.cpu()))]
+    differ = (moe_kept(plans[0], e) != moe_kept(plans[1], e)).any(1)
+    dropped = int((~plans[0]["keep"]).sum())
+    dy = dy * (~differ).to(dy.device)[None, :, None]
+    t = time.perf_counter()
+    want = moe_layer_run(host, x.cpu(), dy.cpu(), cfg)
+    host_s = time.perf_counter() - t
+    got = moe_layer_run(params, x, dy, cfg)
+    same32 = all(torch.equal(a, b) for a, b in
+                 zip(got, moe_layer_run(params, x, dy, cfg)))
+    rows = ~differ
+    errs, bad = {}, []
+    for name, g, w in zip(("y", "dx") + tuple(f"d {k}" for k in MOE_LEAVES),
+                          got, want):
+        g = g.cpu()
+        if not bool(torch.isfinite(g).all()):
+            bad.append(name)
+        if name in ("y", "dx"):
+            g, w = g[0, rows], w[0, rows]
+        errs[name] = float((g - w).abs().max()) / float(w.abs().max())
+        if errs[name] > tol:
+            bad.append(name)
+    del got, want
+
+    cfg16 = base                      # bf16 compute, f32 weights
+    x16, dy16 = x.bfloat16(), dy.bfloat16()
+    runs = [moe_layer_run(params, x16, dy16, cfg16) for _ in range(2)]
+    same16 = all(torch.equal(a, b) for a, b in zip(*runs))
+    del runs
+
+    def forward():
+        with torch.no_grad():
+            modules.moe_ffn(params, x16, cfg16)
+
+    # few calls a timing: each queues hundreds of launches
+    fwd_ms = device_ms("moe layer forward", forward, iters=3)
+    both_ms = device_ms("moe layer forward+backward",
+                        lambda: moe_layer_run(params, x16, dy16, cfg16),
+                        iters=2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        moe_layer_run(params, x16, dy16, cfg16)
+        torch.cuda.synchronize()
+    by_part = device_parts(prof, (), MOE_PARTS)
+    cap = plans[0]["cap"]
+    # the expert products: three (E, cap) x (d, ff) products forward, two
+    # each for their gradients
+    flops = 3 * 2 * e * cap * d * cfg.d_ff
+    print(f"[moe layer] {GRANITE} one MoE FFN layer, d {d}, {e} experts, "
+          f"top {cfg.top_k}, ff {cfg.d_ff}, {n} tokens (capacity {cap} a "
+          f"expert, {e * cap} buffer rows for {n * cfg.top_k} pairs); "
+          f"dropped pairs {dropped}; tokens whose kept experts differ "
+          f"between card and host {int(differ.sum())} of {n} (left out); "
+          f"f32 card against host CPU ({host_s:.1f} s on the CPU), max abs "
+          "err / max: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (tol {tol}); forward and backward twice bit-identical: f32 "
+          f"{same32}, bf16 {same16}", flush=True)
+    print(f"[moe layer] bf16 compute, f32 weights (cast in the call): "
+          f"forward {fwd_ms:.3f} ms, forward + backward {both_ms:.3f} ms by "
+          f"CUDA events (backward {both_ms - fwd_ms:.3f} ms); the expert "
+          f"products alone {flops} flops forward, 3x that with their "
+          f"gradients: {flops / BF16_FLOPS * 1e3:.4f} and "
+          f"{3 * flops / BF16_FLOPS * 1e3:.4f} ms at the bf16 peak",
+          flush=True)
+    print("[moe layer] bf16 forward + backward by part (profiler, device "
+          "ms): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                              sorted(by_part.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    if bad or not (same32 and same16) or int(differ.sum()) >= n / 1000:
+        fail(f"moe layer: card and host differ at {bad}, repeats "
+             f"bit-identical f32 {same32} bf16 {same16}, "
+             f"{int(differ.sum())} tokens routed differently")
+
+
+def phase_prefill(cfg, b, s, params):
+    """A transformer prefill at full width through build_prefill_step: the
+    last token's logits, K3 once a layer, one call timed by CUDA events
+    after a warm-up (for a MoE model, the warm-up's routing plans give the
+    capacity and the pairs dropped); returns K3's launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import build_prefill_step, synthetic_batch
+    tag = f"[prefill {cfg.name}]"
+    step, _ = build_prefill_step(cfg, b, s)
+    batch = synthetic_batch(cfg, 0, b, s)
+    batch.pop("targets")
+    t = time.perf_counter()
+    with routing_plans() as plans:
+        step(params, batch)                    # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    moe = ""
+    if plans:
+        dropped = sum(int((~p["keep"]).sum()) for p in plans)
+        moe = (f", {cfg.n_experts} experts top {cfg.top_k} (capacity "
+               f"{plans[0]['cap']}; dropped {dropped} of "
+               f"{len(plans) * b * s * cfg.top_k} pairs)")
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    # The path: counts set to 0 just before, read just after.
+    reset_counts()
+    t = time.perf_counter()
+    e0.record()
+    logits = step(params, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    launches = fa.launches
+    finite = bool(torch.isfinite(logits).all())
+    print(f"{tag} batch {b} seq {s} bf16, {cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads over {cfg.kv_heads} (D {cfg.head_dim})"
+          f"{moe}: logits "
+          f"{tuple(logits.shape)} {logits.dtype} finite={finite}; "
+          f"flash_attention launches={launches}; one call "
+          f"{e0.elapsed_time(e1):.3f} ms by CUDA events ({wall:.3f} ms host "
+          f"wall; warm-up call {warm_s:.3f} s); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if tuple(logits.shape) != (b, cfg.vocab) or not finite:
+        fail(f"prefill {cfg.name}: logits of the wrong shape or not finite")
+    if launches != cfg.n_layers:
+        fail(f"prefill {cfg.name}: flash_attention launched {launches} "
+             f"times for {cfg.n_layers} layers")
+    return launches
+
+
+@contextlib.contextmanager
+def routing_plans():
+    """Every routing plan ``moe_ffn`` makes inside the block, in order."""
+    from repro_torch.models import modules
+    route, plans = modules.moe_route, []
+
+    def recording(logits, cfg):
+        plans.append(route(logits, cfg))
+        return plans[-1]
+
+    modules.moe_route = recording
+    try:
+        yield plans
+    finally:
+        modules.moe_route = route
+
+
+def phase_decode_moe(params):
+    """Dense-cache decode (build_decode_step) against the chunked forward,
+    f32, at full granite-moe-3b-a800m width: 32 tokens one at a time.  A
+    forward of S tokens has a capacity of max(S/4, 8) pairs an expert and
+    can drop pairs; decode (one token, capacity 8 for its 8 distinct
+    experts) never does.  So decode is held, at 2e-3, to the forward at
+    every position before the first one the forward dropped a pair of (in
+    any layer: attention carries a drop to every later position), and at
+    every position to the forward with a capacity that drops nothing
+    (capacity_factor E / k).  A position whose top 8 differ between
+    decode and that forward (a near-tie) and every later one are left out
+    and counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.train import build_decode_step, synthetic_batch
+    tol, n = 2e-3, 32
+    cfg = dataclasses.replace(get_config(GRANITE), attn_impl="chunked",
+                              compute_dtype=torch.float32)
+    whole = dataclasses.replace(cfg,
+                                capacity_factor=cfg.n_experts / cfg.top_k)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_batch(cfg, 1, 1, n).items()}
+    batch.pop("targets")
+    step, _ = build_decode_step(cfg, 1, 64)
+    cache = transformer.init_cache(cfg, 1, 64)
+    outs = []
+    with routing_plans() as plans:
+        for i in range(n):
+            if i == 1:            # the first step warms up; time the rest
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            lg, cache = step(params, cache, np.array([i], np.int32),
+                             batch["tokens"][:, i:i + 1])
+            outs.append(lg[:, 0])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        decode_plans = list(plans)
+        plans.clear()
+        with torch.no_grad():
+            want = transformer.forward(params, batch, cfg)
+        dropping = list(plans)
+        plans.clear()
+        with torch.no_grad():
+            want_whole = transformer.forward(params, batch, whole)
+        whole_plans = list(plans)
+    got = torch.stack(outs, 1)
+    layers = cfg.n_layers
+    # positions with a dropped pair, in any layer of the forward
+    dropped = set()
+    for plan in dropping:
+        dropped.update(plan["tok"][~plan["keep"]].tolist())
+    clean = min(dropped, default=n)
+    # the first position whose experts differ between decode and the
+    # forward that drops nothing, in any layer
+    flips = [i for i in range(n) for layer in range(layers)
+             if set(decode_plans[i * layers + layer]["idx"][0].tolist())
+             != set(whole_plans[layer]["idx"][i].tolist())]
+    agree = min(flips, default=n)
+    if any((~p["keep"]).any() for p in decode_plans + whole_plans):
+        fail("decode granite: decode or the whole-capacity forward dropped "
+             "a pair")
+    rel = lambda d, w: bool((d > tol + tol * w.abs()).any())  # noqa: E731
+    d1 = (got[:, :min(clean, agree)] - want[:, :min(clean, agree)]).abs()
+    d2 = (got[:, :agree] - want_whole[:, :agree]).abs()
+    err1 = float(d1.max()) if d1.numel() else 0.0
+    err2 = float(d2.max()) if d2.numel() else 0.0
+    print(f"[decode {GRANITE}] f32 batch 1, {n} tokens one at a time through "
+          f"build_decode_step (cache max_seq 64) vs the chunked forward: the "
+          f"forward (capacity {dropping[0]['cap']}) dropped "
+          f"{sum(int((~p['keep']).sum()) for p in dropping)} pairs over "
+          f"{layers} layers, at {len(dropped)} of {n} positions, the first "
+          f"at {clean if dropped else 'none'}; max_abs_err before it "
+          f"{err1:.3g}; against the forward that drops nothing "
+          f"(capacity_factor {whole.capacity_factor:g}) at {agree} "
+          f"positions: {err2:.3g} (tol {tol}); positions whose experts "
+          f"differ from that forward's: {len(set(flips))}; "
+          f"{wall / (n - 1):.3f} ms a step over steps 2-{n} (host wall)",
+          flush=True)
+    if rel(d1, want[:, :d1.shape[1]]) or rel(d2, want_whole[:, :agree]) \
+            or not bool(torch.isfinite(got).all()) or agree < n // 2:
+        fail(f"decode {GRANITE}: decode and forward differ by {err1:.3g} "
+             f"and {err2:.3g} ({len(set(flips))} positions routed "
+             "differently)")
+
+
+def phase_repeat_cut(cfg, layers=8):
+    """check_step_repeats on the model cut to ``layers`` layers, full
+    width, batch and seq TRAIN, after one step (so the moments are not
+    zero): the full model's state does not fit twice on the card."""
+    from repro_torch.train import synthetic_batch
+    cut = dataclasses.replace(cfg, n_layers=layers)
+    b, s = TRAIN
+    params, opt, step = train_setup(cut, b, s)
+    params, opt, _ = step(params, opt, synthetic_batch(cut, 0, b, s))
+    check_step_repeats(f"[train {cfg.name} {layers} of {cfg.n_layers} "
+                       "layers]", step, params, opt,
+                       synthetic_batch(cut, 1, b, s))
+
+
+def phase_serve_moe():
+    """The serve driver at full granite-moe-3b-a800m width: its counts, K1
+    once a decode step and K2 once a compaction."""
+    from repro_torch.kernels import gc_compact, paged_attention
+    reset_counts()
+    counts = run_serve(SERVE_GRANITE, EXPECT_GRANITE)
+    k1, k2 = paged_attention.launches, gc_compact.launches
+    print(f"[serve {GRANITE}] launches paged_attention={k1} "
+          f"gather_page_units={k2}", flush=True)
+    if (k1, k2) != (counts["decode_steps"], counts["compaction_steps"]):
+        fail(f"serve {GRANITE}: paged_attention {k1} and gather_page_units "
+             f"{k2} launches for {counts['decode_steps']} decode steps and "
+             f"{counts['compaction_steps']} compactions")
+
+
+def phase_moe_family():
+    """One MoE layer against the host, then granite-moe-3b-a800m's prefill,
+    decode, serve and training paths (the repeat check cut to 8 layers,
+    the train driver at SMOKE size) and grok-1-314b's prefill cut to 2
+    layers; prints the wall of each phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    cfg = dataclasses.replace(get_config(GRANITE), attn_impl="chunked")
+    grok = dataclasses.replace(get_config("grok-1-314b"), n_layers=2,
+                               attn_impl="chunked")
+    held = {}
+
+    def prefill():
+        held["params"] = full_params(cfg)
+        phase_prefill(cfg, *PREFILL, held["params"])
+
+    phases = [
+        ("moe layer", phase_moe_layer),
+        ("prefill", prefill),
+        ("decode", lambda: phase_decode_moe(held.pop("params"))),
+        ("serve", phase_serve_moe),
+        ("train", lambda: phase_train(
+            cfg, [("flash_attention", lambda: fa.launches,
+                   2 * cfg.n_layers),
+                  ("flash_attention_bwd", lambda: fa.bwd_launches,
+                   cfg.n_layers)],
+            TRAIN_PARTS[:2], ["flash_attention"], MOE_PARTS, repeat=False)),
+        ("repeat check", lambda: phase_repeat_cut(cfg)),
+        ("train driver", lambda: run_train_driver(
+            ["--arch", GRANITE, "--smoke", "--steps", "4", "--batch", "2",
+             "--seq", "32"])),
+        ("grok prefill", lambda: phase_prefill(grok, *GROK_PREFILL,
+                                               full_params(grok))),
+    ]
+    wall = {}
+    for name, run in phases:
+        t = time.perf_counter()
+        run()
+        torch.cuda.empty_cache()
+        wall[name] = time.perf_counter() - t
+    print("[moe] phase wall " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in wall.items())
+        + f"; all {sum(wall.values()):.3f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -1958,13 +2334,17 @@ def main() -> int:
 
     # The prefill path (its counts are set and read inside), then K3 in the
     # model at f32, decode, and GQA at full width.
-    params = full_params(get_config("olmo-1b"))
-    records[2]["launches"] = phase_prefill_olmo(params)
+    cfg = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked")
+    params = full_params(cfg)
+    records[2]["launches"] = phase_prefill(cfg, *PREFILL, params)
     phase_prefill_f32_check(params)
     phase_profile(params)
     del params                    # 4.7 GB: make room for starcoder2-3b's 12
     torch.cuda.empty_cache()
-    phase_prefill_starcoder()
+    # GQA at full width: 24 heads over 2 KV heads
+    cfg = dataclasses.replace(get_config("starcoder2-3b"),
+                              attn_impl="chunked")
+    phase_prefill(cfg, 1, 2048, full_params(cfg))
     torch.cuda.empty_cache()
 
     # The training path (its counts are set and read inside): K3 twice and
@@ -2008,6 +2388,9 @@ def main() -> int:
     run_train_driver(["--arch", "mamba2-370m", "--smoke", "--steps", "4",
                       "--batch", "2", "--seq", "32"])
     torch.cuda.empty_cache()
+
+    # The MoE family (each path's counts are set and read inside).
+    phase_moe_family()
 
     # Checkpoints: crash and resume through the train driver, then the
     # store's throughput at full width.

@@ -10,7 +10,7 @@ from __future__ import annotations
 import importlib
 
 ARCHS = ["phi3_medium_14b", "phi3_mini_3_8b", "starcoder2_3b", "olmo_1b",
-         "mamba2_370m"]
+         "mamba2_370m", "granite_moe_3b_a800m", "grok_1_314b"]
 
 
 def canonical(name: str) -> str:

@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..kernels import ops
@@ -228,12 +229,21 @@ def gqa_attention(p: Params, x, positions, cfg, causal: bool = True,
 
 
 # --------------------------------------------------------------------------
-# FFN: dense (SwiGLU / GELU); Mixture-of-Experts comes with its slice
+# FFN: dense (SwiGLU / GELU) and Mixture-of-Experts
 # --------------------------------------------------------------------------
 
 def ffn_specs(cfg) -> Params:
     if cfg.n_experts > 1:
-        raise NotImplementedError("MoE FFN is not yet ported")
+        e = cfg.n_experts
+        return {
+            "router": ParamSpec((cfg.d_model, e), ("embed", "expert")),
+            "wi": ParamSpec((e, cfg.d_model, cfg.d_ff),
+                            ("expert", "embed", "mlp")),
+            "wg": ParamSpec((e, cfg.d_model, cfg.d_ff),
+                            ("expert", "embed", "mlp")),
+            "wo": ParamSpec((e, cfg.d_ff, cfg.d_model),
+                            ("expert", "mlp", "embed")),
+        }
     if cfg.ffn_act == "swiglu":
         return {
             "wi": ParamSpec((cfg.d_model, cfg.d_ff), ("embed", "mlp")),
@@ -255,7 +265,184 @@ def dense_ffn(p: Params, x, cfg):
     return h @ p["wo"]
 
 
+def moe_route(logits, cfg) -> Params:
+    """The routing plan of ``moe_ffn`` from the router's f32 logits (N, E),
+    as the JAX package computes it:
+
+    * ``idx`` (N, k): each token's k largest logits' experts, largest first
+      and the lower expert first among equal logits, as ``jax.lax.top_k``
+      orders them: a stable descending sort (``torch.topk`` does not
+      specify the order of ties on CUDA, and bf16 products make ties);
+    * ``gates`` (N, k): the f32 softmax over those k logits, cast to the
+      compute dtype; the only member that carries a gradient;
+    * ``order`` (N·k,): the flattened (token, choice) pairs, stably sorted
+      by expert;
+    * at each position of ``order``: ``tok``, the pair's token; ``keep``,
+      whether its rank within its expert is below ``cap`` =
+      max(⌈N·k/E·capacity_factor⌉, 8); ``slot``, its row in the (E·cap, D)
+      expert buffer, or E·cap (the overflow bin) where it is dropped;
+    * ``cap``.
+    """
+    n, e = logits.shape
+    k = cfg.top_k
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates = torch.softmax(vals[:, :k], dim=-1).to(cfg.compute_dtype)
+    idx = idx[:, :k]
+    cap = max(int(math.ceil(n * k / e * cfg.capacity_factor)), 8)
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(e, device=idx.device),
+                                side="left")
+    rank = torch.arange(n * k, device=idx.device) - starts[sorted_e]
+    keep = rank < cap
+    slot = torch.where(keep, sorted_e * cap + rank, e * cap)
+    return {"gates": gates, "idx": idx, "order": order, "slot": slot,
+            "tok": order // k, "keep": keep, "cap": cap}
+
+
+def _pair_terms(rows, index, mask, weights=None):
+    """(N, k, D): ``rows[index]`` (times ``weights`` where given) where
+    ``mask``, zero elsewhere.  One gather of N·k rows: ``index_select``
+    where ``rows[index]`` would take the slower generic indexing kernel."""
+    n, k = index.shape
+    terms = rows.index_select(0, index.reshape(-1)).view(n, k, -1)
+    if weights is not None:
+        terms = terms * weights[..., None]
+    return torch.where(mask[..., None], terms, 0)
+
+
+def pair_sum(rows, index, mask, weights=None):
+    """(N, D): for each token, the sum over j = 0..k-1 of ``rows[index[:,
+    j]]`` (times ``weights[:, j]`` where given), where ``mask[:, j]``
+    (elsewhere the term is zero), added left to right, each add rounded to
+    the rows' dtype.  With each token's pairs in ascending expert order
+    this is the order in which the JAX package's scatter-add over repeated
+    tokens adds them (ascending position in ``order``).  Gathers only: no
+    atomics, so every run gives the same bits."""
+    terms = _pair_terms(rows, index, mask, weights)
+    out = terms[:, 0]
+    for j in range(1, index.shape[1]):
+        out = out + terms[:, j]
+    return out
+
+
+def _moe_maps(plan, n_experts: int) -> Params:
+    """Gather maps between a plan's two row spaces: a token's pairs, and
+    the (E·cap) buffer's slots.  ``pair_slot``, ``pair_keep`` (N, k): each
+    token's pairs in ascending expert order (ascending position in
+    ``order``), their slots (0 where dropped) and ``keep``; ``jperm``
+    (N, k): which choice of ``idx`` each is.  ``slot_tok``, ``slot_pos``
+    (E·cap,): the token and position of the pair that fills each slot (0
+    where none does), ``filled``."""
+    order, cap = plan["order"], plan["cap"]
+    n, k = plan["idx"].shape
+    dev = order.device
+    pos, jperm = torch.argsort(order).view(n, k).sort(dim=-1)
+    keep = plan["keep"][pos]
+    sorted_e = plan["idx"].reshape(-1)[order]
+    experts = torch.arange(n_experts, device=dev)
+    starts = torch.searchsorted(sorted_e, experts, side="left")
+    counts = torch.searchsorted(sorted_e, experts, side="right") - starts
+    s = torch.arange(n_experts * cap, device=dev)
+    filled = s % cap < counts[s // cap]
+    slot_pos = torch.where(filled, starts[s // cap] + s % cap, 0)
+    return {"pair_slot": torch.where(keep, plan["slot"][pos], 0),
+            "pair_keep": keep, "jperm": jperm,
+            "slot_tok": plan["tok"][slot_pos], "slot_pos": slot_pos,
+            "filled": filled}
+
+
+class _Dispatch(torch.autograd.Function):
+    """Token rows (N, D) into the expert buffer (E·cap, D): a filled slot
+    takes its pair's token row, an empty one zeros.  A token feeds up to k
+    slots, so its gradient adds up to k rows: ``pair_sum`` adds them in
+    the reference's order, where ``index_add_`` would add them by atomics
+    in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, xt, maps):
+        ctx.maps = maps
+        return torch.where(maps["filled"][:, None],
+                           xt.index_select(0, maps["slot_tok"]), 0)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        m = ctx.maps
+        return pair_sum(dbuf, m["pair_slot"], m["pair_keep"]), None
+
+
+class _Combine(torch.autograd.Function):
+    """The expert rows (E·cap, D) back to tokens (N, D): each token's kept
+    pairs' rows, each times its gate, added by ``pair_sum`` in the
+    reference's order.  The backward gathers too: a filled slot's
+    gradient is its token's times its gate, a gate's the sum of its row
+    times its token's gradient (a batched product, f32 accumulation)."""
+
+    @staticmethod
+    def forward(ctx, out, gates, order, maps):
+        g = gates.gather(1, maps["jperm"])
+        # the gate of the pair that fills each slot
+        slot_gate = gates.reshape(-1)[order[maps["slot_pos"]]]
+        ctx.save_for_backward(out, g, slot_gate)
+        ctx.maps = maps
+        return pair_sum(out, maps["pair_slot"], maps["pair_keep"], g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        out, g, slot_gate = ctx.saved_tensors
+        m = ctx.maps
+        dout = dgates = None
+        if ctx.needs_input_grad[0]:
+            dout = torch.where(m["filled"][:, None],
+                               dy.index_select(0, m["slot_tok"])
+                               * slot_gate[:, None], 0)
+        if ctx.needs_input_grad[1]:
+            rows = _pair_terms(out, m["pair_slot"], m["pair_keep"])
+            dg = torch.bmm(rows, dy[:, :, None])[..., 0]
+            # back from ascending expert order to idx's order
+            dgates = dg.gather(1, torch.argsort(m["jperm"], dim=-1))
+        return dout, dgates, None, None
+
+
+def moe_experts(p: Params, xt, plan, cfg):
+    """The MoE FFN on a routing plan: xt (N, D) in the compute dtype into
+    the (E, cap, D) buffer, the per-expert SwiGLU products, and the gated
+    combine; returns (N, D).  ``p`` is already in the compute dtype."""
+    n, d = xt.shape
+    e, cap = cfg.n_experts, plan["cap"]
+    maps = _moe_maps(plan, e)
+    # The JAX package constrains the buffer to the "expert" mesh axis here
+    # (parallel.ctx.constrain), a no-op outside a mesh; the port runs on
+    # one card and has no parallel/ yet, so there is no call.
+    with record_function("moe.dispatch"):
+        buf = _Dispatch.apply(xt, maps).view(e, cap, d)
+    with record_function("moe.experts"):
+        h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["wg"])) * \
+            torch.einsum("ecd,edf->ecf", buf, p["wi"])
+        out = torch.einsum("ecf,efd->ecd", h, p["wo"])
+    with record_function("moe.combine"):
+        return _Combine.apply(out.reshape(e * cap, d), plan["gates"],
+                              plan["order"], maps)
+
+
+def moe_ffn(p: Params, x, cfg):
+    """Top-k MoE with capacity-based sort dispatch, as the JAX package's
+    ``moe_ffn``: tokens flattened, routed (``moe_route``), packed into an
+    (E, cap, D) buffer (overflow dropped), processed with per-expert
+    einsums and combined with the router's gates (``moe_experts``).  The
+    profiler sees its parts as ``moe.route``, ``moe.dispatch``,
+    ``moe.experts`` and ``moe.combine``."""
+    b, s, d = x.shape
+    p = {k: w.to(cfg.compute_dtype) for k, w in p.items()}
+    xt = x.reshape(b * s, d).to(cfg.compute_dtype)
+    with record_function("moe.route"):
+        plan = moe_route((xt @ p["router"]).float(), cfg)
+    y = moe_experts(p, xt, plan, cfg)
+    return y.reshape(b, s, d).to(x.dtype)
+
+
 def ffn(p: Params, x, cfg):
     if cfg.n_experts > 1:
-        raise NotImplementedError("MoE FFN is not yet ported")
+        return moe_ffn(p, x, cfg)
     return dense_ffn(p, x, cfg)

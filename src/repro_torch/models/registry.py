@@ -9,7 +9,7 @@ from .config import ModelConfig
 
 
 def get_model(cfg: ModelConfig) -> ModuleType:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return transformer
     if cfg.family == "ssm":
         return ssm

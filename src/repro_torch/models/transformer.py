@@ -7,8 +7,9 @@ as in the JAX package, and the forward pass walks them with a Python loop
 and grad enabled, each layer runs under non-reentrant
 ``torch.utils.checkpoint``, as the JAX forward wraps it in
 ``jax.checkpoint``: the backward pass runs it again; under ``no_grad`` the
-loop is unchanged.  Covers the dense family; the frame frontend (audio,
-VLM) and M-RoPE come with their slices.
+loop is unchanged.  Covers the dense and MoE families (the FFN is
+``modules.ffn``, a MoE FFN where ``n_experts > 1``); the frame frontend
+(audio, VLM) and M-RoPE come with their slices.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
@@ -56,10 +58,15 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _layer(cfg: ModelConfig, x, lp: Params, positions, causal: bool):
-    h, _ = gqa_attention(lp["attn"], norm(x, lp["attn_norm"], cfg),
-                         positions, cfg, causal=causal)
+    # Profiler ranges: a step's time by part, the remat recompute included
+    # (it runs inside the backward pass, under these ranges again).
+    with record_function("attention"):
+        h, _ = gqa_attention(lp["attn"], norm(x, lp["attn_norm"], cfg),
+                             positions, cfg, causal=causal)
     x = x + h
-    return x + ffn(lp["ffn"], norm(x, lp["ffn_norm"], cfg), cfg)
+    with record_function("ffn"):
+        h = ffn(lp["ffn"], norm(x, lp["ffn_norm"], cfg), cfg)
+    return x + h
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict):

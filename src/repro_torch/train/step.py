@@ -17,6 +17,7 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..models import get_model
@@ -103,8 +104,9 @@ def build_train_step(cfg: ModelConfig, global_batch: int, seq: int,
             loss, grads = value_and_grad(params, batch)
         grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                    for g in grads))
-        params, opt_state = apply_updates(
-            params, tree_unflatten(params, grads), opt_state, tc.adamw)
+        with record_function("adamw"):
+            params, opt_state = apply_updates(
+                params, tree_unflatten(params, grads), opt_state, tc.adamw)
         return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
 
     return train_step, (params_abs, opt_abs, batch_abs)

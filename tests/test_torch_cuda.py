@@ -326,14 +326,18 @@ def test_flash_attention_kernel_matches_plain(cuda, b, s, h, hkv, d, dtype,
 # bf16 cases of the tensor-core kernel beyond the sweep: the olmo-1b prefill
 # shape; a diagonal tile cut short by S (200 rows against 128-row tiles);
 # and nearly one-hot rows (q x 30, score std ~30, so a row's max jumps by
-# hundreds between KV tiles and the rescaling must be exact).  The last is
+# hundreds between KV tiles and the rescaling must be exact).  The third is
 # held against the plain version in f32 on the same bf16 values: the bf16
 # plain version rounds scores near 100 to steps of 0.5, which alone moves a
-# weight by e^0.25.  Tolerance 2e-2 (bf16 weights and output).
+# weight by e^0.25.  Then the MoE prefills: granite-moe-3b-a800m's (24
+# heads over 8, D 64) and grok-1-314b's (48 over 8, D 128).  Tolerance
+# 2e-2 (bf16 weights and output).
 @pytest.mark.parametrize("b,s,h,hkv,d,q_scale,plain_dtype", [
     (2, 4096, 16, 16, 128, 1.0, torch.bfloat16),
     (1, 200, 4, 2, 128, 1.0, torch.bfloat16),
     (1, 2048, 4, 2, 128, 30.0, torch.float32),
+    (2, 4096, 24, 8, 64, 1.0, torch.bfloat16),
+    (1, 2048, 48, 8, 128, 1.0, torch.bfloat16),
 ])
 def test_flash_attention_bf16_kernel_cases(cuda, b, s, h, hkv, d, q_scale,
                                            plain_dtype):
@@ -469,14 +473,17 @@ def test_flash_attention_bwd_kernel_head_widths(cuda, d, dtype, causal):
 
 
 # The [K3 bwd] shapes of chip_smoke.py: olmo-1b's training shape,
-# starcoder2-3b's GQA (24 heads over 2), phi3-mini's D = 96, and a ragged
-# f32 case.
+# starcoder2-3b's GQA (24 heads over 2), phi3-mini's D = 96, a ragged f32
+# case, granite-moe-3b-a800m's training shape (24 over 8, D 64) and
+# grok-1-314b's GQA (48 over 8, D 128).
 @pytest.mark.parametrize("b,s,h,hkv,d,dtype,causal", [
     (2, 4096, 16, 16, 128, torch.bfloat16, True),
     (1, 2048, 24, 2, 128, torch.bfloat16, True),
     (1, 2048, 32, 32, 96, torch.bfloat16, True),
     (1, 200, 8, 2, 64, torch.float32, True),
     (1, 200, 8, 2, 64, torch.float32, False),
+    (2, 4096, 24, 8, 64, torch.bfloat16, True),
+    (1, 2048, 48, 8, 128, torch.bfloat16, True),
 ])
 def test_flash_attention_bwd_kernel_model_shapes(cuda, b, s, h, hkv, d,
                                                  dtype, causal):
@@ -1123,3 +1130,103 @@ def test_checkpoint_saves_and_restores_card_tensors(cuda, dtype, tmp_path):
     for (name, x), (_, y) in zip(named_leaves(got), named_leaves(tree)):
         assert x.device.type == "cuda" and x.dtype == y.dtype, name
         assert torch.equal(x, y), name
+
+
+def _granite_moe_layer(cuda, n, dtype, seed):
+    """granite-moe-3b-a800m's MoE FFN at full width (d_model 1536, 40
+    experts, top 8, ff 512): f32 weights, n tokens and an output gradient
+    from ``seed``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import modules
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              compute_dtype=dtype)
+    gen = torch.Generator(cuda).manual_seed(seed)
+    params = modules.materialize(modules.ffn_specs(cfg), gen, device=cuda)
+    x, dy = (torch.randn((1, n, cfg.d_model), generator=gen, device=cuda)
+             .to(dtype) for _ in range(2))
+    return cfg, params, x, dy
+
+
+def _moe_layer_grads(params, x, dy, cfg):
+    """[y, dx, d router, d wg, d wi, d wo] of one MoE FFN layer."""
+    from repro_torch.models import modules
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    xr = x.detach().requires_grad_()
+    y = modules.moe_ffn(leaves, xr, cfg)
+    names = ["router", "wg", "wi", "wo"]
+    return [y.detach()] + list(torch.autograd.grad(
+        y, [xr] + [leaves[k] for k in names], dy))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_repeats_bit_for_bit(cuda, dtype):
+    """Forward and backward of the MoE FFN twice on the same inputs give
+    the same bits: the combine and the dispatch's gradient add each
+    token's pairs in a fixed order, by gathers, with no atomics."""
+    cfg, params, x, dy = _granite_moe_layer(cuda, 4096, dtype, 0)
+    runs = [_moe_layer_grads(params, x, dy, cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
+
+
+def test_moe_layer_matches_the_host(cuda):
+    """The MoE FFN at full width in f32 on the card against the same
+    function on the host CPU: y, dx and the four weights' gradients, each
+    at 1e-4 of its largest magnitude (sums in other orders).  A token
+    whose kept experts differ between the two (a near-tie) gets no output
+    gradient on either side and its rows are not compared; at most 1 of
+    the 1024 may."""
+    from repro_torch.models import modules
+    cfg, params, x, dy = _granite_moe_layer(cuda, 1024, torch.float32, 1)
+    host = {k: v.cpu() for k, v in params.items()}
+    kept = []
+    for p, xs in ((params, x), (host, x.cpu())):
+        plan = modules.moe_route((xs[0] @ p["router"]).float(), cfg)
+        k = torch.zeros((1024, cfg.n_experts), dtype=torch.bool)
+        k[plan["tok"].cpu(), plan["idx"].reshape(-1)[plan["order"]].cpu()] = \
+            plan["keep"].cpu()
+        kept.append(k)
+    same = ~(kept[0] != kept[1]).any(1)
+    assert int((~same).sum()) <= 1
+    dy = dy * same.to(cuda)[None, :, None]
+    got = _moe_layer_grads(params, x, dy, cfg)
+    want = _moe_layer_grads(host, x.cpu(), dy.cpu(), cfg)
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.cpu()
+        if i < 2:                     # y and dx: the tokens routed alike
+            g, w = g[0, same], w[0, same]
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-4 * scale, i
+
+
+def test_moe_train_step_repeats_bit_for_bit(cuda):
+    """A granite-moe-3b-a800m train step at full width, 2 layers, chunked
+    attention (K3 and K3-bwd), taken twice from clones of one state (after
+    one step, so the moments are not zero), gives the same bits in every
+    leaf and in the loss and grad norm."""
+    from repro_torch.checkpoint import named_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import (TrainConfig, build_train_step,
+                                   init_state, synthetic_batch)
+    from repro_torch.train.optimizer import clone_tree
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              n_layers=2, attn_impl="chunked")
+    tc = TrainConfig()
+    params = get_model(cfg).init(cfg, torch.Generator(cuda).manual_seed(0),
+                                 cuda)
+    step, _ = build_train_step(cfg, 2, 512, tc, cuda)
+    opt = init_state(params, tc.adamw)
+    params, opt, _ = step(params, opt, synthetic_batch(cfg, 0, 2, 512))
+    batch = synthetic_batch(cfg, 1, 2, 512)
+    runs = []
+    for _ in range(2):
+        p, o, m = step(clone_tree(params), clone_tree(opt), batch)
+        runs.append(named_leaves({"params": p, "opt": o, "metrics": m}))
+    torch.cuda.synchronize()
+    assert [n for n, _ in runs[0]] == [n for n, _ in runs[1]]
+    assert [n for (n, x), (_, y) in zip(*runs) if not torch.equal(x, y)] \
+        == []
+    assert np.isfinite(float(dict(runs[0])["metrics/loss"]))

@@ -1,4 +1,4 @@
-"""The port's dense transformer against the JAX package, on the CPU.
+"""The port's transformer (dense and MoE) against the JAX package, on the CPU.
 
 Both packages get the same inputs (made with numpy) and the same weights
 (JAX's init, carried over by ``params_from_numpy``).  On the CPU the port's
@@ -37,7 +37,8 @@ from repro_torch.train import (build_decode_step, build_prefill_step,
                                synthetic_batch)
 from repro_torch.weights import params_from_numpy
 
-ARCHS = ["olmo-1b", "phi3-mini-3.8b", "starcoder2-3b", "phi3-medium-14b"]
+ARCHS = ["olmo-1b", "phi3-mini-3.8b", "starcoder2-3b", "phi3-medium-14b",
+         "granite-moe-3b-a800m", "grok-1-314b"]
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -188,7 +189,18 @@ def test_forward_and_loss_match_jax(arch, impl, dtype):
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     logits = transformer.forward(tp, tb, tc)
     assert logits.shape == (2, 32, tc.vocab) and logits.dtype == TDT[dtype]
-    assert_close(logits, j_get_model(jc).forward(jp, jb, jc), dtype, 1e-4)
+    if tc.n_experts > 1 and impl == "chunked" and dtype == "bf16":
+        # The port's chunked path on the CPU is K3's plain version, which
+        # rounds as JAX's naive path does; JAX's jnp chunked path rounds
+        # elsewhere (ROADMAP F9).  At the MoE SMOKE widths (granite's head
+        # dim is 8) F7's nearly one-hot attention turns that into up to
+        # 0.24 between JAX's own two bf16 paths, so the MoE archs are held
+        # to JAX's naive path here.
+        naive = dataclasses.replace(jc, attn_impl="naive")
+        want = j_get_model(naive).forward(jp, jb, naive)
+    else:
+        want = j_get_model(jc).forward(jp, jb, jc)
+    assert_close(logits, want, dtype, 1e-4)
     loss = float(transformer.loss_fn(tp, tb, tc))
     want = float(j_get_model(jc).loss_fn(jp, jb, jc))
     # f32: a mean of log-softmax terms, ~1e-6 relative; bf16: the logits'
@@ -299,7 +311,6 @@ def test_step_builders_inputs_match_jax(arch):
 @pytest.mark.parametrize("change,match", [
     ({"rope": "mrope"}, "M-RoPE"),
     ({"frontend": "vision"}, "frontend"),
-    ({"n_experts": 4}, "MoE"),
 ])
 def test_unported_branches_raise(change, match):
     cfg = dataclasses.replace(get_config("olmo-1b", smoke=True), **change)

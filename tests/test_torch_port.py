@@ -50,7 +50,8 @@ def test_port_imports_neither_jax_nor_repro():
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "phi3-mini-3.8b",
                                   "starcoder2-3b", "phi3-medium-14b",
-                                  "mamba2-370m"])
+                                  "mamba2-370m", "granite-moe-3b-a800m",
+                                  "grok-1-314b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_jax(arch, smoke):
     want, got = j_get_config(arch, smoke=smoke), get_config(arch, smoke=smoke)
@@ -75,7 +76,8 @@ def _flat(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch,model", [("olmo-1b", transformer),
-                                        ("mamba2-370m", ssm)])
+                                        ("mamba2-370m", ssm),
+                                        ("granite-moe-3b-a800m", transformer)])
 def test_params_from_numpy_round_trips_jax_init(arch, model):
     cfg = j_get_config(arch, smoke=True)
     params = j_get_model(cfg).init(cfg, jax.random.PRNGKey(3))

@@ -108,13 +108,24 @@ def _count_line(text):
 
 
 def test_driver_matches_jax_kernel_path(capsys):
-    assert serve.main(["--arch", "olmo-1b", "--device", "cpu"]) == 0
+    _check_driver_against_jax("olmo-1b", capsys)
+
+
+def test_moe_driver_matches_jax_kernel_path(capsys):
+    """granite-moe-3b-a800m: the driver attends through layer 0's
+    attention (24 heads over 8 at full width, 6 over 2 at SMOKE); the
+    traffic, so every count, is olmo's."""
+    _check_driver_against_jax("granite-moe-3b-a800m", capsys)
+
+
+def _check_driver_against_jax(arch, capsys):
+    assert serve.main(["--arch", arch, "--device", "cpu"]) == 0
     line = _count_line(capsys.readouterr().out)
     assert line == ("completed=24/24 decode_steps=62 compaction_steps=12 "
                     "compaction_dmas=360 alloc_failures=0")
 
     # The JAX driver on the same request stream, with its kernel path on.
-    cfg = j_get_config("olmo-1b", smoke=True)
+    cfg = j_get_config(arch, smoke=True)
     params = j_get_model(cfg).init(cfg, jax.random.PRNGKey(0))
     cache = JPagedKVCache(cfg, JPagedCacheConfig(
         n_pages=256, page_size=4, use_pallas=True, interpret=True))

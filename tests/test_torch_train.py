@@ -156,7 +156,10 @@ TRAIN_CASES = [(arch, impl, dtype)
                for arch in ["olmo-1b", "starcoder2-3b"]
                for impl in ["naive", "chunked"]
                for dtype in ["f32", "bf16"]] + \
-    [("mamba2-370m", "naive", dtype) for dtype in ["f32", "bf16"]]
+    [("mamba2-370m", "naive", dtype) for dtype in ["f32", "bf16"]] + \
+    [(arch, "chunked", dtype)
+     for arch in ["granite-moe-3b-a800m", "grok-1-314b"]
+     for dtype in ["f32", "bf16"]]
 
 
 @pytest.mark.parametrize("arch,impl,dtype", TRAIN_CASES)
@@ -212,7 +215,9 @@ def _grads_against_jax(jc, tc):
 @pytest.mark.parametrize("arch,impl", [("olmo-1b", "naive"),
                                        ("olmo-1b", "chunked"),
                                        ("starcoder2-3b", "chunked"),
-                                       ("mamba2-370m", "naive")])
+                                       ("mamba2-370m", "naive"),
+                                       ("granite-moe-3b-a800m", "chunked"),
+                                       ("grok-1-314b", "naive")])
 def test_grads_match_jax(arch, impl):
     """Each leaf's gradient against jax.value_and_grad of the JAX loss."""
     _grads_against_jax(*_cfgs(arch, "f32", attn_impl=impl))
@@ -297,7 +302,8 @@ def _abstract(tree):
     return tuple(tree.shape), str(tree.dtype)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-370m",
+                                  "granite-moe-3b-a800m"])
 def test_train_step_inputs_match_jax(arch):
     jc, tc = j_get_config(arch, smoke=True), get_config(arch, smoke=True)
     *_, want = j_step.build_train_step(jc, _mesh(), 4, 16)
@@ -325,12 +331,21 @@ def _driver(argv):
 
 
 def test_train_driver_prints_the_jax_driver_lines():
-    rc, lines = _driver(DRIVER + ["--steps", "3"])
+    _check_driver_lines("olmo-1b")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "grok-1-314b"])
+def test_train_driver_runs_the_moe_archs(arch):
+    _check_driver_lines(arch)
+
+
+def _check_driver_lines(arch):
+    rc, lines = _driver(DRIVER + ["--arch", arch, "--steps", "3"])
     assert rc == 0 and lines[-1] == "training done"
     steps = [STEP_LINE.fullmatch(line) for line in lines[:-1]]
     assert all(steps) and [int(s.group(1)) for s in steps] == [0, 1, 2]
     # the losses are those of build_train_step from init with seed 0
-    cfg = get_config("olmo-1b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     tcfg = TrainConfig(adamw=AdamWConfig(lr=1e-3))
     step, _ = build_train_step(cfg, 2, 32, tcfg, "cpu")
     params = get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
@@ -353,7 +368,8 @@ def _steps(lines):
     return [int(m.group(1)) for m in map(STEP_LINE.fullmatch, lines) if m]
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-370m",
+                                  "granite-moe-3b-a800m", "grok-1-314b"])
 def test_train_driver_crash_resume_replays_identically(arch, tmp_path):
     """Crash after step 5 (saves after steps 2 and 5), resume, and end
     with the same bits in every leaf as a run never interrupted."""
