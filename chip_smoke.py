@@ -76,7 +76,25 @@ Phases, in order; any failure exits non-zero:
    layers (batch 1, seq 2048: 8 experts of ff 32768, K3 at D 128 over 8 KV
    heads).  K3 and K3-bwd are held against their plain versions in phase 2
    at granite-moe's and grok-1's shapes too, and timed beside SDPA.
-11. Checkpoints (``[checkpoint]``): crash and resume through the train
+11. The hybrid, VLM and audio families (``[zoo]``).  jamba-v0.1-52b at
+   full width (d_model 4096, 32 heads over 8, Mamba P 64 and N 16, chunk
+   128) cut to 1 of 4 super-blocks (8 of 32 layers; the full model's
+   51.5B f32 params do not fit a card): the prefill with all 16 experts
+   (batch 2, seq 4096: K3 once, K4 once for each of the 7 Mamba
+   positions), profiled by part; decode in f32 against the forward over
+   two chunks, all three held to a forward with attention and scan in
+   f64; 4 training steps with 2 of 16 experts (batch 1, seq 4096, remat
+   "full": K3 2, K3-bwd 1, K4 14 and K4-bwd 7 launches a step), peak
+   memory and a profile by part, and 5 steps from the seed taken twice
+   to the same bits (the state fits the card once, not twice); one f32
+   step's gradients of the kernels against their plain versions in f32
+   and f64; the train driver at SMOKE size.  qwen2-vl-2b at full width
+   (M-RoPE): the prefill (28 K3 launches), f32 decode, 4 training steps
+   (K3 56 and K3-bwd 28 a step).  hubert-xlarge: a full-width forward
+   (non-causal, D 80: no kernel) and the SMOKE train driver.  Phase 2
+   holds and times K3 and K3-bwd at jamba's and qwen2-vl's shapes, K4
+   and K4-bwd at jamba's.
+12. Checkpoints (``[checkpoint]``): crash and resume through the train
    driver on the card for olmo-1b and mamba2-370m at SMOKE size (crash
    after step 5 of 8 with a checkpoint every 3 steps, resume, and an
    uninterrupted run): the resumed run prints ``resumed from step 5`` and
@@ -87,8 +105,9 @@ Phases, in order; any failure exits non-zero:
    f32) cut to 2 of its 48 layers: one save, as the engine's save slows
    down as the store fills (``tools/ckpt_throughput.py`` takes more).
 
-The last lines are a JSON object per kernel, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.  There is no CPU fallback: with
+The last lines are a JSON object per kernel (with its launches on the
+phase 11 paths under ``paths``), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  There is no CPU fallback: with
 no card the script exits non-zero before doing anything.
 """
 
@@ -121,7 +140,8 @@ EXPECT_FULL = ("completed=24/24 decode_steps=62 compaction_steps=12 "
                "compaction_dmas=2880 alloc_failures=0")
 PREFILL = (2, 4096)            # olmo-1b, mamba2-370m, granite-moe prefill
 GROK_PREFILL = (1, 2048)       # grok-1-314b prefill (batch, seq), 2 layers
-TRAIN = (2, 4096)              # training (batch, seq), every model
+TRAIN = (2, 4096)              # training (batch, seq), every model but jamba
+JAMBA_TRAIN = (1, 4096)        # jamba-v0.1-52b training (batch, seq)
 TRAIN_STEPS = 4
 SERVE_GRANITE = ["--arch", "granite-moe-3b-a800m", "--full"]
 # The traffic and pages are olmo's, so are the counts; compaction_dmas is
@@ -542,6 +562,8 @@ def phase_flash_attention():
         ("granite-moe-3b-a800m prefill", *PREFILL, 24, 8, 64, bf16, True,
          2e-2),
         ("grok-1-314b prefill", *GROK_PREFILL, 48, 8, 128, bf16, True, 2e-2),
+        ("jamba-v0.1-52b prefill", *PREFILL, 32, 8, 128, bf16, True, 2e-2),
+        ("qwen2-vl-2b prefill", *PREFILL, 12, 2, 128, bf16, True, 2e-2),
         ("ragged f32 non-causal", 1, 1000, 8, 2, 64, f32, False, 2e-3),
     ]
     record = None
@@ -638,6 +660,9 @@ def phase_flash_attention_bwd():
         ("granite-moe-3b-a800m training", *TRAIN, 24, 8, 64, bf16, True,
          1e-2),
         ("grok-1-314b GQA", *GROK_PREFILL, 48, 8, 128, bf16, True, 1e-2),
+        ("jamba-v0.1-52b training", *JAMBA_TRAIN, 32, 8, 128, bf16, True,
+         1e-2),
+        ("qwen2-vl-2b training", *TRAIN, 12, 2, 128, bf16, True, 1e-2),
         ("ragged f32 causal", 1, 200, 8, 2, 64, f32, True, 1e-4),
         ("ragged f32 full", 1, 200, 8, 2, 64, f32, False, 1e-4),
     ]
@@ -763,9 +788,13 @@ def phase_ssd_scan():
     # (label, B, S, H, P, N, chunk, dt range, initial state, sequential too)
     # dt 0.70-0.82 with a near -0.95 is the decay at mamba2-370m's init
     # (about -0.72 a step: exp over the upper triangle would overflow);
-    # small dt keeps a long memory, so the carried state matters.
+    # small dt keeps a long memory, so the carried state matters.  The
+    # first case gives the record; jamba's (N = 16, byte-bound) is timed
+    # too.
     cases = [
         ("mamba2-370m prefill", *PREFILL, 32, 64, 128, 128, (0.70, 0.82),
+         False, False),
+        ("jamba-v0.1-52b prefill", *PREFILL, 128, 64, 16, 128, (0.1, 0.9),
          False, False),
         ("mamba2 SMOKE widths", 2, 256, 8, 16, 16, 16, (0.1, 0.9), False,
          False),
@@ -802,7 +831,7 @@ def phase_ssd_scan():
         print(f"[K4] {label} (B,S,H,P,N)=({b},{s},{h},{p},{n}) chunk {chunk}"
               f"{' with initial state' if with_state else ''}: max_abs_err "
               f"{', '.join(errs)} (tol {tol} x |max|)", flush=True)
-        if record is not None:
+        if record is not None and not label.startswith("jamba"):
             continue
         want_y = oracles[0][1][0]
         err = float((y - want_y).abs().max())
@@ -824,7 +853,7 @@ def phase_ssd_scan():
         # The products run as split TF32: three TF32 products for each
         # f32 one, on the tensor cores.
         op_ms = 3 * flops / TF32_FLOPS * 1e3
-        record = dict(
+        case = dict(
             name="ssd_scan", route="cuda",
             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
             replaces="src/repro/kernels/ssd_scan.py:82",
@@ -832,10 +861,11 @@ def phase_ssd_scan():
             bound_ms=max(byte_ms, op_ms),
             bound_by="bytes" if byte_ms >= op_ms else "operations",
             library_ms=None)
+        record = record or case
         print(f"[K4] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               "no library call; "
               f"{nbytes} bytes, {flops} flops -> bound "
-              f"{record['bound_ms']:.6f} ms ({record['bound_by']}: 3 x the "
+              f"{case['bound_ms']:.6f} ms ({case['bound_by']}: 3 x the "
               f"flops at {TF32_FLOPS / 1e12:.0f} TFLOP/s TF32, the bytes at "
               f"{HBM_BYTES_PER_S / 1e12} TB/s; {flops / F32_FLOPS * 1e3:.6f} "
               f"ms on the f32 SIMT units); kernel at "
@@ -935,10 +965,14 @@ def phase_ssd_scan_bwd():
     # (label, B, S, H, P, N, chunk, dt range, a (None: -U(0.9, 1)), initial
     # state and dfinal, autograd too).  dt 0.70-0.82 with a near -0.95 is
     # the decay at mamba2-370m's init; training drops the final state, so
-    # its gradient is zero there.
+    # its gradient is zero there.  The first case gives the record;
+    # jamba's (N = 16: the fused launch on wgmma, dB/dC and the chunk
+    # gradients on mma.sync) is timed too.
     cases = [
         ("mamba2-370m training", *TRAIN, 32, 64, 128, 128, (0.70, 0.82),
          None, False, False),
+        ("jamba-v0.1-52b training", *JAMBA_TRAIN, 128, 64, 16, 128,
+         (0.1, 0.9), None, False, False),
         ("mamba2 SMOKE widths", 2, 256, 8, 16, 16, 16, (0.1, 0.9), None,
          True, True),
         ("overflowing decay", 2, 512, 4, 64, 128, 128, (0.70, 0.82), -0.95,
@@ -997,7 +1031,7 @@ def phase_ssd_scan_bwd():
             fail(f"ssd_scan_bwd {label}: two calls differ")
         if p == 64 and chunk in (64, 128) and not route.startswith("tensor"):
             fail(f"ssd_scan_bwd {label}: took the route of mma.sync")
-        if record is not None:
+        if record is not None and not label.startswith("jamba"):
             continue
         del got, again
         torch.cuda.synchronize()
@@ -1015,7 +1049,7 @@ def phase_ssd_scan_bwd():
                                             dfinal is not None)
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         op_ms = 3 * flops / TF32_FLOPS * 1e3    # split TF32, as K4
-        record = dict(
+        case = dict(
             name="ssd_scan_bwd", route="cuda",
             source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
             replaces="src/repro/models/ssm.py:72",
@@ -1023,16 +1057,17 @@ def phase_ssd_scan_bwd():
             bound_ms=max(byte_ms, op_ms),
             bound_by="bytes" if byte_ms >= op_ms else "operations",
             library_ms=None)
+        record = record or case
         print(f"[K4 bwd] {label}: one call takes {extra_mib:.1f} MiB of "
               f"device memory at its peak (the gradients and the scratch); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no library "
               f"call (no PyTorch call computes the SSD scan's gradient); "
               f"{nbytes} bytes, {flops} flops -> bound "
-              f"{record['bound_ms']:.6f} ms ({record['bound_by']}: 3 x the "
+              f"{case['bound_ms']:.6f} ms ({case['bound_by']}: 3 x the "
               f"flops at {TF32_FLOPS / 1e12:.0f} TFLOP/s TF32, the bytes "
               f"{byte_ms:.6f} ms at {HBM_BYTES_PER_S / 1e12} TB/s); kernel "
               f"at {flops / ms / 1e9:.2f} TFLOP/s of that work, "
-              f"{ms / record['bound_ms']:.2f}x its bound", flush=True)
+              f"{ms / case['bound_ms']:.2f}x its bound", flush=True)
         ssd_launch_times(lambda: ss.ssd_scan_bwd(*args, dy, dfinal, work),
                          key="ssd_bwd", tag="[K4 bwd]")
     return record
@@ -1050,9 +1085,9 @@ def reset_counts():
 
 
 def full_params(cfg):
-    from repro_torch.models import transformer
+    from repro_torch.models import get_model
     gen = torch.Generator("cuda").manual_seed(SEED)
-    return transformer.init(cfg, gen, "cuda")
+    return get_model(cfg).init(cfg, gen, "cuda")
 
 
 def phase_prefill_f32_check(params):
@@ -1063,7 +1098,7 @@ def phase_prefill_f32_check(params):
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer
-    from repro_torch.train import build_decode_step, synthetic_batch
+    from repro_torch.train import synthetic_batch
     tol = 2e-3
     base = dataclasses.replace(get_config("olmo-1b"),
                                compute_dtype=torch.float32)
@@ -1089,35 +1124,8 @@ def phase_prefill_f32_check(params):
     if bad or not bool(torch.isfinite(logits["chunked"]).all()):
         fail(f"prefill f32 check: chunked and naive differ by {err:.3g}")
 
-    n = 32
-    cfg = dataclasses.replace(base, attn_impl="chunked")
-    step, _ = build_decode_step(cfg, 1, 64)
-    cache = transformer.init_cache(cfg, 1, 64)
-    tokens = batch["tokens"][:, :n]
-    outs = []
-    for i in range(n):
-        if i == 1:                # the first step warms up; time the rest
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-        lg, cache = step(params, cache, np.array([i], np.int32),
-                         tokens[:, i:i + 1])
-        outs.append(lg[:, 0])
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t) * 1e3
-    got = torch.stack(outs, 1)
-    with torch.no_grad():
-        want = transformer.forward(
-            params, {"tokens": tokens, "positions": batch["positions"][:, :n]},
-            cfg)
-    diff = (got - want).abs()
-    err = float(diff.max())
-    print(f"[decode olmo-1b] f32 batch 1, {n} tokens one at a time through "
-          f"build_decode_step (cache max_seq 64) vs the chunked forward: "
-          f"max_abs_err={err:.3g} (tol {tol}); {wall / (n - 1):.3f} ms a "
-          "step over steps 2-32 (host wall)", flush=True)
-    if bool((diff > tol + tol * want.abs()).any()) \
-            or not bool(torch.isfinite(got).all()):
-        fail(f"decode olmo-1b: decode and forward differ by {err:.3g}")
+    phase_decode_transformer(dataclasses.replace(base, attn_impl="chunked"),
+                             params)
 
 
 def train_setup(cfg, b, s, lr=1e-3, seed=SEED):
@@ -1132,18 +1140,19 @@ def train_setup(cfg, b, s, lr=1e-3, seed=SEED):
     return params, init_state(params, tc.adamw), step
 
 
-def phase_train(cfg, kernels, parts, keep, labels=None, repeat=True):
+def phase_train(cfg, kernels, parts, keep, labels=None, repeat=True,
+                shape=TRAIN):
     """The training path at full width: TRAIN_STEPS steps of
-    build_train_step (batch and seq TRAIN, AdamW lr 1e-3, params from SEED,
-    synthetic_batch steps 0-4), each step's loss, grad norm, time by CUDA
-    events and launches, then the same step taken twice from one state
-    (check_step_repeats; not where ``repeat`` is false: a model whose
-    state cannot be held twice) and one profiled step.  ``kernels`` is
-    [(name, its count now, its launches a step)]; ``parts``, ``keep`` and
-    ``labels`` go to profile_train_step.  Returns each kernel's launches
-    over the run."""
+    build_train_step (batch and seq ``shape``, AdamW lr 1e-3, params from
+    SEED, synthetic_batch steps 0-4), each step's loss, grad norm, time by
+    CUDA events and launches, then the same step taken twice from one
+    state (check_step_repeats; check_run_repeats where ``repeat`` is
+    "replay": a state that fits the card once, not twice; none where it
+    is false) and one profiled step.  ``kernels`` is [(name, its count now,
+    its launches a step)]; ``parts``, ``keep`` and ``labels`` go to
+    profile_train_step.  Returns each kernel's launches over the run."""
     from repro_torch.train import synthetic_batch
-    b, s = TRAIN
+    b, s = shape
     tag = f"[train {cfg.name}]"
     params, opt, step = train_setup(cfg, b, s)
     batches = [synthetic_batch(cfg, i, b, s) for i in range(TRAIN_STEPS + 1)]
@@ -1184,7 +1193,12 @@ def phase_train(cfg, kernels, parts, keep, labels=None, repeat=True):
           + " ".join(f"{name}={n}" for (name, _, _), n in zip(kernels,
                                                                 totals)),
           flush=True)
-    if repeat:
+    if repeat == "replay":
+        state = [params, opt]
+        del params, opt
+        params, opt = check_run_repeats(tag, cfg, shape, step, state,
+                                        batches)
+    elif repeat:
         check_step_repeats(tag, step, params, opt, batches[TRAIN_STEPS])
     profile_train_step(step, params, opt, batches[TRAIN_STEPS],
                        f"{cfg.name} batch {b} seq {s}", parts, keep, labels)
@@ -1224,6 +1238,51 @@ def check_step_repeats(tag, step, params, opt, batch):
              f"{[d[0] for d in differ]}")
 
 
+def leaf_digest(x):
+    """Two 64-bit sums of a tensor's bit patterns, the second weighted by
+    position: a fingerprint of its bits that a changed element moves."""
+    ints = {4: torch.int32, 2: torch.int16, 1: torch.int8}[x.element_size()]
+    bits = x.contiguous().view(ints).reshape(-1).to(torch.int64)
+    weight = torch.arange(bits.numel(), device=x.device) % 65521 + 1
+    return int(bits.sum()), int((bits * weight).sum())
+
+
+def state_digests(params, opt, metrics):
+    from repro_torch.checkpoint import named_leaves
+    return [(name, leaf_digest(x)) for name, x in
+            named_leaves({"params": params, "opt": opt, "metrics": metrics})]
+
+
+def check_run_repeats(tag, cfg, shape, step_fn, state, batches):
+    """For a state the card holds once but not twice: one more step from
+    the timed run's state, then the whole run again from the seed (init,
+    the same TRAIN_STEPS + 1 batches); both must end on the same bits in
+    every leaf of params, mu, nu and count and in the loss and grad norm,
+    compared by fingerprints (leaf_digest).  ``state`` is the list
+    [params, opt], emptied here so that the first run's state is freed;
+    returns the state the second run ends on."""
+    t = time.perf_counter()
+    params, opt, metrics = step_fn(*state, batches[TRAIN_STEPS])
+    first = state_digests(params, opt, metrics)
+    state.clear()
+    del params, opt, metrics
+    torch.cuda.empty_cache()
+    params, opt, step_fn = train_setup(cfg, *shape)
+    for batch in batches:
+        params, opt, metrics = step_fn(params, opt, batch)
+    second = state_digests(params, opt, metrics)
+    differ = [name for (name, x), (_, y) in zip(first, second) if x != y]
+    print(f"{tag} {TRAIN_STEPS + 1} steps from the seed, taken twice, end "
+          f"on the same bits (fingerprints of {len(first)} leaves: params, "
+          f"mu, nu, count, loss, grad norm): {not differ}"
+          + (f"; {len(differ)} differ, the first {differ[0]}" if differ
+             else "") + f"; check wall {time.perf_counter() - t:.3f} s",
+          flush=True)
+    if differ:
+        fail(f"train: the run repeated from the seed differs in {differ}")
+    return params, opt
+
+
 # (substrings of a kernel's name, part), first match wins
 PRODUCT_PART = (("nvjet", "gemm", "cutlass", "xmma"), "matrix products (cuBLAS)")
 TRAIN_PARTS = ((("flash_attention_bwd",), "K3-bwd (flash_attention_bwd)"),
@@ -1235,8 +1294,8 @@ TRAIN_PARTS_SSM = ((("ssd_bwd",), "K4-bwd (ssd_scan_bwd)"),
 
 
 # Profiler ranges (record_function) of the port's model and train step.
-RANGES = ("attention", "ffn", "moe.route", "moe.dispatch", "moe.experts",
-          "moe.combine", "adamw")
+RANGES = ("attention", "mamba", "ffn", "moe.route", "moe.dispatch",
+          "moe.experts", "moe.combine", "adamw")
 REST = "elementwise, casts, reductions, optimizer"
 
 
@@ -2139,6 +2198,14 @@ def routing_plans():
         modules.moe_route = route
 
 
+def decode_flips(decode_plans, forward_plans, n, layers):
+    """The positions whose experts differ, in any MoE layer, between
+    decode (one plan a step and layer) and a forward (one plan a layer)."""
+    return sorted({i for i in range(n) for layer in range(layers)
+                   if set(decode_plans[i * layers + layer]["idx"][0].tolist())
+                   != set(forward_plans[layer]["idx"][i].tolist())})
+
+
 def phase_decode_moe(params):
     """Dense-cache decode (build_decode_step) against the chunked forward,
     f32, at full granite-moe-3b-a800m width: 32 tokens one at a time.  A
@@ -2193,9 +2260,7 @@ def phase_decode_moe(params):
     clean = min(dropped, default=n)
     # the first position whose experts differ between decode and the
     # forward that drops nothing, in any layer
-    flips = [i for i in range(n) for layer in range(layers)
-             if set(decode_plans[i * layers + layer]["idx"][0].tolist())
-             != set(whole_plans[layer]["idx"][i].tolist())]
+    flips = decode_flips(decode_plans, whole_plans, n, layers)
     agree = min(flips, default=n)
     if any((~p["keep"]).any() for p in decode_plans + whole_plans):
         fail("decode granite: decode or the whole-capacity forward dropped "
@@ -2214,13 +2279,13 @@ def phase_decode_moe(params):
           f"{err1:.3g}; against the forward that drops nothing "
           f"(capacity_factor {whole.capacity_factor:g}) at {agree} "
           f"positions: {err2:.3g} (tol {tol}); positions whose experts "
-          f"differ from that forward's: {len(set(flips))}; "
+          f"differ from that forward's: {len(flips)}; "
           f"{wall / (n - 1):.3f} ms a step over steps 2-{n} (host wall)",
           flush=True)
     if rel(d1, want[:, :d1.shape[1]]) or rel(d2, want_whole[:, :agree]) \
             or not bool(torch.isfinite(got).all()) or agree < n // 2:
         fail(f"decode {GRANITE}: decode and forward differ by {err1:.3g} "
-             f"and {err2:.3g} ({len(set(flips))} positions routed "
+             f"and {err2:.3g} ({len(flips)} positions routed "
              "differently)")
 
 
@@ -2296,6 +2361,492 @@ def phase_moe_family():
     print("[moe] phase wall " + ", ".join(
         f"{k} {v:.3f} s" for k, v in wall.items())
         + f"; all {sum(wall.values()):.3f} s", flush=True)
+
+
+JAMBA = "jamba-v0.1-52b"
+QWEN = "qwen2-vl-2b"
+HUBERT = "hubert-xlarge"
+JAMBA_BLOCKS = 1               # of 4 super-blocks (8 of 32 layers)
+JAMBA_TRAIN_EXPERTS = 2        # of 16, top 2 kept
+HYBRID_PARTS = {"attention": "attention (norm, projections, RoPE)",
+                "mamba": "Mamba-2 (norm, projections, conv, gate, casts)",
+                "ffn": "FFN: norms, dense products, weight casts",
+                "moe.route": "MoE: routing and sort",
+                "moe.dispatch": "MoE: dispatch",
+                "moe.experts": "MoE: expert products",
+                "moe.combine": "MoE: combine",
+                "adamw": "AdamW"}
+HYBRID_KERNELS = TRAIN_PARTS[:2] + TRAIN_PARTS_SSM[:2]
+
+
+def jamba_cfg(**kw):
+    """jamba-v0.1-52b at full width, cut to JAMBA_BLOCKS super-blocks, with
+    chunked attention (K3)."""
+    from repro_torch.configs import get_config
+    base = get_config(JAMBA)
+    return dataclasses.replace(base, n_layers=JAMBA_BLOCKS * base.attn_every,
+                               attn_impl="chunked", **kw)
+
+
+def n_params(tree):
+    from repro_torch.checkpoint import named_leaves
+    return sum(x.numel() for _, x in named_leaves(tree))
+
+
+def phase_prefill_hybrid(cfg, params):
+    """jamba's prefill at full width through build_prefill_step (batch 2,
+    seq 4096, bf16): K3 once and K4 once for each Mamba position of every
+    block, counted; one call by CUDA events after a warm-up (whose routing
+    plans give the dropped pairs, F13), its peak memory and one call by
+    part.  Returns {kernel: launches}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.train import build_prefill_step, synthetic_batch
+    tag = f"[prefill {cfg.name}]"
+    b, s = PREFILL
+    n_blocks = cfg.n_layers // cfg.attn_every
+    step, _ = build_prefill_step(cfg, b, s)
+    batch = synthetic_batch(cfg, 0, b, s)
+    batch.pop("targets")
+    t = time.perf_counter()
+    with routing_plans() as plans:
+        step(params, batch)                    # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    dropped = sum(int((~p["keep"]).sum()) for p in plans)
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    # The path: counts set to 0 just before, read just after.
+    reset_counts()
+    t = time.perf_counter()
+    e0.record()
+    logits = step(params, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    got = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
+    want = {"flash_attention": n_blocks,
+            "ssd_scan": n_blocks * (cfg.attn_every - 1)}
+    finite = bool(torch.isfinite(logits).all())
+    print(f"{tag} batch {b} seq {s} bf16, {cfg.n_layers} of 32 layers "
+          f"({n_params(params) / 1e9:.2f}B params, f32), {cfg.n_experts} "
+          f"experts top {cfg.top_k} (capacity {plans[0]['cap']}; dropped "
+          f"{dropped} of {len(plans) * b * s * cfg.top_k} pairs): logits "
+          f"{tuple(logits.shape)} {logits.dtype} finite={finite}; launches "
+          f"flash_attention={got['flash_attention']} ssd_scan calls="
+          f"{got['ssd_scan']} (3 launches each); one call "
+          f"{e0.elapsed_time(e1):.3f} ms by CUDA events ({wall:.3f} ms host "
+          f"wall; warm-up call {warm_s:.3f} s); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if tuple(logits.shape) != (b, cfg.vocab) or not finite:
+        fail(f"prefill {cfg.name}: logits of the wrong shape or not finite")
+    if got != want:
+        fail(f"prefill {cfg.name}: launched {got}, not {want}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = device_time_by_name(prof)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    totals = device_parts(prof, HYBRID_KERNELS, HYBRID_PARTS)
+    # outside autograd the kernels' launches (through ctypes) hang under no
+    # op: count them by name
+    for keys, part in HYBRID_KERNELS[1::2]:
+        if part not in totals:
+            totals[part] = sum(us for name, (us, _) in by_name.items()
+                               if any(key in name for key in keys)) / 1e3
+    unlinked = busy_ms - sum(totals.values())
+    if abs(unlinked) > 1e-3:
+        totals["other kernels linked to no op"] = unlinked
+    print(f"[profile] prefill {cfg.name}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * (1 - busy_ms / wall_ms):.1f}% idle): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in
+                      sorted(totals.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    return got
+
+
+def attention_f64(q, k, v, causal=True):
+    """K3's function in f64, its result cast back to q's dtype: a reference
+    for the f32 paths."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.double().reshape(b, s, hkv, h // hkv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.double()) / d ** 0.5
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v.double())
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def ssd_f64(x, dt, a, bmat, cmat, chunk, initial_state=None):
+    """K4's plain version in f64, its results cast back: a reference for
+    the f32 paths."""
+    from repro_torch.kernels import ref
+    y, state = ref.ssd_chunked_ref(
+        *(t.double() for t in (x, dt, a, bmat, cmat)), chunk,
+        None if initial_state is None else initial_state.double())
+    return y.to(x.dtype), state.float()
+
+
+@contextlib.contextmanager
+def hybrid_path(impl):
+    """jamba's attention and SSD scan on one of three paths: "kernel" (K3
+    and K4, with their backward kernels), "plain" (their plain versions
+    in f32: the naive attention, ref.ssd_chunked_ref) or "f64" (the plain
+    versions in f64, attention_f64 and ssd_f64, everything else in f32 as
+    on the other two).  Yields the attn_impl to run with."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.ssd, ops.attention
+    if impl == "plain":
+        ops.ssd = ref.ssd_chunked_ref
+    elif impl == "f64":
+        ops.ssd, ops.attention = ssd_f64, attention_f64
+    try:
+        yield "naive" if impl == "plain" else "chunked"
+    finally:
+        ops.ssd, ops.attention = saved
+
+
+def phase_decode_hybrid(params):
+    """jamba's decode (plain PyTorch: KV cache at the attention position,
+    O(1) conv and SSM state at the Mamba ones) against its forward over
+    256 tokens (two 128-step chunks), both in f32 at full width with all
+    16 experts: 160 tokens one at a time.  The forwards take
+    capacity_factor E/k, so that they drop no pair (F13).  A position
+    whose experts differ between decode and a forward (a near-tie of the
+    router's logits) and every later one are left out and counted; at
+    least half must agree.  At one block F7 makes every stacked weight
+    std 1: the residual stream reaches ~5e6, dt ~300 and dt·a ~-6000, so
+    the chunked scan's f32 cumsums lose ~1e-4 of its output, and K4's
+    products in split TF32 (2^-21) lose 3-7x that.  So the check is
+    measured in the run against a reference, the forward with the
+    attention and the scan in f64 (hybrid_path "f64"): ``spread`` is the
+    plain f32 forward's largest distance from it; decode must lie within
+    twice that (its recurrence has no long cumsum), the K3 + K4 forward
+    within 8x (split TF32 against f32), each at least 2e-3 of the logits'
+    largest magnitude."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import hybrid
+    from repro_torch.train import build_decode_step, synthetic_batch
+    tol, n, s = 2e-3, 160, 256
+    cfg = jamba_cfg(compute_dtype=torch.float32)
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    moe_layers = sum(f == "moe" for _, f in hybrid._position_roles(cfg)) \
+        * (cfg.n_layers // cfg.attn_every)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_batch(cfg, 1, 1, s).items()}
+    batch.pop("targets")
+    forwards, routes = {}, {}
+    with routing_plans() as plans, torch.no_grad():
+        for impl in ["kernel", "plain", "f64"]:
+            reset_counts()
+            with hybrid_path(impl) as attn:
+                forwards[impl] = hybrid.forward(
+                    params, batch, dataclasses.replace(cfg, attn_impl=attn)
+                )[:, :n]
+            torch.cuda.synchronize()
+            if impl == "kernel":
+                launches = (fa.launches, ss.launches)
+            routes[impl] = list(plans)
+            plans.clear()
+        step, _ = build_decode_step(cfg, 1, s)
+        cache = hybrid.init_cache(cfg, 1, s)
+        outs = []
+        for i in range(n):
+            if i == 1:            # the first step warms up; time the rest
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            lg, cache = step(params, cache, np.array([i], np.int32),
+                             batch["tokens"][:, i:i + 1])
+            outs.append(lg[:, 0])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    if launches != (1, cfg.attn_every - 1):
+        fail(f"decode {cfg.name}: the forward launched K3 and K4 {launches}")
+    if any((~p["keep"]).any() for r in list(routes.values()) + [plans]
+           for p in r):
+        fail(f"decode {cfg.name}: a pair was dropped")
+    flips = sorted(set().union(*(decode_flips(plans, r, n, moe_layers)
+                                 for r in routes.values())))
+    agree = min(flips, default=n)
+    got = torch.stack(outs, 1)[:, :agree]
+    want = forwards["f64"][:, :agree]
+    scale = float(want.abs().max())
+    err = {k: float((v[:, :agree] - want).abs().max()) if agree else 0.0
+           for k, v in (("decode", got), ("kernel", forwards["kernel"]),
+                        ("plain", forwards["plain"]))}
+    bound = {"decode": max(2 * err["plain"], tol * scale),
+             "kernel": max(8 * err["plain"], tol * scale)}
+    print(f"[decode {cfg.name}] f32 batch 1, {n} tokens one at a time "
+          f"through build_decode_step (KV cache max_seq {s}, O(1) Mamba "
+          f"state, no kernel), {cfg.n_experts} experts, against the forward "
+          f"over {s} tokens (chunk {cfg.ssm_chunk}; capacity_factor "
+          f"{cfg.capacity_factor:g}, no pair dropped) with attention and "
+          f"scan in f64: positions whose experts differ {len(flips)} (the "
+          f"first at {flips[0] if flips else 'none'}); max abs err over the "
+          f"{agree} before it: decode {err['decode']:.3g} (bound "
+          f"{bound['decode']:.3g}), the K3 + K4 forward ({launches[0]} K3 "
+          f"launch, {launches[1]} K4 calls) {err['kernel']:.3g} (bound "
+          f"{bound['kernel']:.3g}), the plain f32 forward {err['plain']:.3g}"
+          f"; |logits| <= {scale:.3g}; {wall / (n - 1):.3f} ms a step over "
+          f"steps 2-{n} (host wall)", flush=True)
+    if any(err[k] > bound[k] for k in bound) \
+            or not bool(torch.isfinite(got).all()) or agree < n // 2:
+        fail(f"decode {cfg.name}: {err} against {bound} ({len(flips)} "
+             "positions routed differently)")
+
+
+def phase_train_hybrid_f32_check():
+    """One f32 step's loss and gradients of jamba at full width, cut to
+    one block and JAMBA_TRAIN_EXPERTS experts, batch 1, seq 256 (two
+    chunks), remat "full", on three paths (hybrid_path): the kernels (K3
+    f32 and K3-bwd, K4 and K4-bwd), their plain versions in f32 (naive
+    attention, autograd through ref.ssd_chunked_ref) and in f64 (the
+    reference).  The host CPU would take minutes for this model, so the
+    tolerance is measured on the card.  F7's std-1 weights at one block
+    leave the gradient ill conditioned: dt reaches ~300 and dt·a ~-6000,
+    so the chunked scan's f32 cumsums lose ~1e-4 of its output, and the
+    step turns that into ~2% of each gradient on the plain path.  K4's
+    and K4-bwd's products in split TF32 keep 2^-21 to 2^-22 (the lo·lo
+    term is dropped, the tensor cores' sums truncate) against f32's
+    2^-24; on the first Mamba position's own inputs the kernel's output
+    lies 3-7x farther from f64 than the plain f32 version's (printed),
+    and the whole step's gradients ~9-10x (the first run: predicted 8x).
+    So each leaf's ‖g − g_f64‖/‖g_f64‖ of the kernel path must lie
+    within 16x the plain f32 path's, and within 1e-4 where that is
+    smaller: a wrong gradient is off by its own size.  The loss is held
+    to 1e-5 relative of the reference's."""
+    from repro_torch.checkpoint import named_leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import hybrid
+    from repro_torch.train import synthetic_batch
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    base = jamba_cfg(compute_dtype=torch.float32,
+                     n_experts=JAMBA_TRAIN_EXPERTS)
+    params = full_params(base)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_batch(base, 2, 1, 256).items()}
+    res, scan_inputs = {}, []
+    for impl in ["kernel", "plain", "f64"]:
+        reset_counts()
+        with hybrid_path(impl) as attn:
+            if impl == "f64":        # keep the first scan's inputs
+                f64_scan = ops.ssd
+                ops.ssd = lambda *a: (scan_inputs or scan_inputs.append(
+                    [t.detach() if torch.is_tensor(t) else t for t in a]),
+                    f64_scan(*a))[1]
+            cfg = dataclasses.replace(base, attn_impl=attn)
+            leaves = [p.detach().requires_grad_()
+                      for p in tree_leaves(params)]
+            loss = hybrid.loss_fn(tree_unflatten(params, leaves), batch, cfg)
+            res[impl] = (float(loss.detach()),
+                         torch.autograd.grad(loss, leaves))
+        torch.cuda.synchronize()
+        got = (fa.launches, fa.bwd_launches, ss.launches, ss.bwd_launches)
+        want = (2, 1, 14, 7) if impl == "kernel" else (0, 0, 0, 0)
+        if got != want:
+            fail(f"train {JAMBA} f32 check: {impl} launched K3, K3-bwd, K4, "
+                 f"K4-bwd {got}, not {want}")
+    x, dt, a, bm, cm, chunk, init = scan_inputs[0]
+    with torch.no_grad():
+        ys = {"kernel": ss.ssd_scan(x, dt, a, bm, cm, chunk, init)[0],
+              "plain": ref.ssd_chunked_ref(x, dt, a, bm, cm, chunk, init)[0]}
+        y64 = ref.ssd_chunked_ref(*(t.double() for t in (x, dt, a, bm, cm)),
+                                  chunk, None if init is None
+                                  else init.double())[0]
+    scan_err = {k: float((v.double() - y64).norm() / y64.norm())
+                for k, v in ys.items()}
+    print(f"[train {JAMBA} f32 check] the first Mamba position's scan on "
+          f"its own inputs (|x| <= {float(x.abs().max()):.4g}, dt "
+          f"{float(dt.min()):.3g}-{float(dt.max()):.4g}, dt·a >= "
+          f"{float((dt * a).min()):.4g}): ‖y − y_f64‖/‖y_f64‖ K4 "
+          f"{scan_err['kernel']:.3g}, plain f32 {scan_err['plain']:.3g}",
+          flush=True)
+    (lk, gk), (lp, gp), (l64, g64) = res["kernel"], res["plain"], res["f64"]
+    loss_rel = abs(lk - l64) / abs(l64)
+    rows, bad, worst = [], [], 0.0
+    for (name, _), k, p, r in zip(named_leaves(params), gk, gp, g64):
+        norm = float(r.norm())
+        rel, spread = float((k - r).norm()) / norm, float((p - r).norm()) / norm
+        bound = max(16 * spread, 1e-4)
+        worst = max(worst, rel / bound)
+        rows.append(f"{name} {rel:.3g} (plain {spread:.3g})")
+        if rel > bound:
+            bad.append(name)
+    print(f"[train {JAMBA} f32 check] full width, {base.n_layers} layers, "
+          f"{base.n_experts} experts, batch 1 seq 256 f32, remat "
+          f"{base.remat}: loss f64 reference {l64:.7f}, kernel {lk:.7f} (rel "
+          f"{loss_rel:.3g}, tol 1e-5), plain {lp:.7f}; ‖g − g_f64‖/‖g_f64‖ "
+          f"of the kernel path (of the plain f32 path; held to 16x that): "
+          + ", ".join(rows) + f"; worst share of its bound {worst:.3g}",
+          flush=True)
+    if not np.isfinite(lk) or loss_rel > 1e-5 or bad:
+        fail(f"train {JAMBA} f32 check: kernel gradients off at "
+             f"{bad or 'the loss'}")
+
+
+def phase_decode_transformer(cfg, params, n=32):
+    """Dense-cache decode (build_decode_step) against the chunked (K3)
+    forward, f32 at full width: ``n`` tokens one at a time, at 2e-3 (the
+    olmo-1b check's tolerance).  Under M-RoPE the forward's three position
+    streams are equal, as decode's are."""
+    from repro_torch.models import transformer
+    from repro_torch.train import build_decode_step, synthetic_batch
+    tol = 2e-3
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_batch(cfg, 1, 1, n).items()}
+    batch.pop("targets")
+    step, _ = build_decode_step(cfg, 1, 64)
+    cache = transformer.init_cache(cfg, 1, 64)
+    outs = []
+    for i in range(n):
+        if i == 1:                # the first step warms up; time the rest
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        lg, cache = step(params, cache, np.array([i], np.int32),
+                         batch["tokens"][:, i:i + 1])
+        outs.append(lg[:, 0])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    got = torch.stack(outs, 1)
+    with torch.no_grad():
+        want = transformer.forward(params, batch, cfg)
+    diff = (got - want).abs()
+    err = float(diff.max())
+    print(f"[decode {cfg.name}] f32 batch 1, {n} tokens one at a time "
+          f"through build_decode_step (cache max_seq 64) vs the chunked "
+          f"forward: max_abs_err={err:.3g} (tol {tol}, |logits| <= "
+          f"{float(want.abs().max()):.3g}); {wall / (n - 1):.3f} ms a step "
+          f"over steps 2-{n} (host wall)", flush=True)
+    if bool((diff > tol + tol * want.abs()).any()) \
+            or not bool(torch.isfinite(got).all()):
+        fail(f"decode {cfg.name}: decode and forward differ by {err:.3g}")
+
+
+def phase_forward_audio(cfg, params):
+    """hubert-xlarge's forward at full width on 2 x 4096 frames, bf16,
+    non-causal: the materialised attention (its D of 80 takes no kernel,
+    as in the JAX package), one call by CUDA events after a warm-up, its
+    peak memory; no kernel may launch."""
+    from repro_torch.models import transformer
+    from repro_torch.train import synthetic_batch
+    b, s = PREFILL
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_batch(cfg, 0, b, s).items()}
+    with torch.no_grad():
+        transformer.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        reset_counts()
+        e0.record()
+        logits = transformer.forward(params, batch, cfg)
+        e1.record()
+        torch.cuda.synchronize()
+    from repro_torch.kernels import flash_attention as fa
+    finite = bool(torch.isfinite(logits).all())
+    print(f"[forward {cfg.name}] batch {b}, {s} frames, bf16, "
+          f"{cfg.n_layers} layers, {cfg.n_heads} heads of D {cfg.head_dim}, "
+          f"causal={cfg.causal} ({n_params(params) / 1e9:.3f}B params): "
+          f"logits {tuple(logits.shape)} {logits.dtype} finite={finite}; "
+          f"flash_attention launches={fa.launches}; one call "
+          f"{e0.elapsed_time(e1):.3f} ms by CUDA events; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if tuple(logits.shape) != (b, s, cfg.vocab) or not finite \
+            or fa.launches:
+        fail(f"forward {cfg.name}: logits or launches wrong")
+
+
+def phase_model_zoo():
+    """The last three families at full width: jamba-v0.1-52b cut to
+    JAMBA_BLOCKS of 4 super-blocks (prefill with 16 experts, decode in
+    f32, training with JAMBA_TRAIN_EXPERTS experts (its repeat check by
+    replay from the seed), the f32 gradient check
+    and the SMOKE train driver); qwen2-vl-2b (prefill, decode, training);
+    hubert-xlarge (a forward, the SMOKE train driver).  Prints the wall of
+    each part; returns {path: {kernel: launches}} of the counted paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    jamba = jamba_cfg()
+    jamba_train = jamba_cfg(n_experts=JAMBA_TRAIN_EXPERTS)
+    qwen = dataclasses.replace(get_config(QWEN), attn_impl="chunked")
+    hubert = get_config(HUBERT)
+    held, paths = {}, {}
+
+    def jamba_prefill():
+        held["params"] = full_params(jamba)
+        paths[f"{JAMBA} prefill"] = phase_prefill_hybrid(jamba,
+                                                         held["params"])
+
+    def jamba_step():
+        blocks = jamba_train.n_layers // jamba_train.attn_every
+        n_mamba = blocks * (jamba_train.attn_every - 1)
+        kernels = [("flash_attention", lambda: fa.launches, 2 * blocks),
+                   ("flash_attention_bwd", lambda: fa.bwd_launches, blocks),
+                   ("ssd_scan", lambda: ss.launches, 2 * n_mamba),
+                   ("ssd_scan_bwd", lambda: ss.bwd_launches, n_mamba)]
+        totals = phase_train(jamba_train, kernels, HYBRID_KERNELS,
+                             ["flash_attention", "ssd_"], HYBRID_PARTS,
+                             repeat="replay", shape=JAMBA_TRAIN)
+        paths[f"{JAMBA} train, {TRAIN_STEPS} steps"] = {
+            name: n for (name, _, _), n in zip(kernels, totals)}
+
+    def qwen_prefill():
+        held["params"] = full_params(qwen)
+        paths[f"{QWEN} prefill"] = {"flash_attention": phase_prefill(
+            qwen, *PREFILL, held["params"])}
+
+    def qwen_step():
+        kernels = [("flash_attention", lambda: fa.launches,
+                    2 * qwen.n_layers),
+                   ("flash_attention_bwd", lambda: fa.bwd_launches,
+                    qwen.n_layers)]
+        totals = phase_train(qwen, kernels, TRAIN_PARTS,
+                             ["flash_attention"], HYBRID_PARTS)
+        paths[f"{QWEN} train, {TRAIN_STEPS} steps"] = {
+            name: n for (name, _, _), n in zip(kernels, totals)}
+
+    phases = [
+        ("jamba prefill", jamba_prefill),
+        ("jamba decode", lambda: phase_decode_hybrid(held.pop("params"))),
+        ("jamba train", jamba_step),
+        ("jamba f32 check", phase_train_hybrid_f32_check),
+        ("jamba train driver", lambda: run_train_driver(
+            ["--arch", JAMBA, "--smoke", "--steps", "4", "--batch", "2",
+             "--seq", "32"])),
+        ("qwen prefill", qwen_prefill),
+        ("qwen decode", lambda: phase_decode_transformer(
+            qwen, held.pop("params"))),
+        ("qwen train", qwen_step),
+        ("hubert forward", lambda: phase_forward_audio(
+            hubert, full_params(hubert))),
+        ("hubert train driver", lambda: run_train_driver(
+            ["--arch", HUBERT, "--smoke", "--steps", "4", "--batch", "2",
+             "--seq", "32"])),
+    ]
+    wall = {}
+    for name, run in phases:
+        t = time.perf_counter()
+        run()
+        torch.cuda.empty_cache()
+        wall[name] = time.perf_counter() - t
+        print(f"[zoo] phase wall {name} {wall[name]:.3f} s", flush=True)
+    print("[zoo] phase wall " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in wall.items())
+        + f"; all {sum(wall.values()):.3f} s", flush=True)
+    return paths
 
 
 def main() -> int:
@@ -2391,6 +2942,16 @@ def main() -> int:
 
     # The MoE family (each path's counts are set and read inside).
     phase_moe_family()
+
+    # The hybrid, VLM and audio families (each path's counts are set and
+    # read inside); each kernel's record gains its launches on their paths.
+    names = ["paged_attention", "gather_page_units", "flash_attention",
+             "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd"]
+    paths = phase_model_zoo()
+    for name, record in zip(names, records):
+        record["paths"] = {path: counts[name]
+                           for path, counts in paths.items()
+                           if name in counts}
 
     # Checkpoints: crash and resume through the train driver, then the
     # store's throughput at full width.

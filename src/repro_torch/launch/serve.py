@@ -44,6 +44,10 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=not args.full)
     model = get_model(cfg)
+    if "layers" not in model.specs(cfg):
+        # as the JAX driver, which fails on params["layers"]
+        ap.error(f"--arch {args.arch}: the driver attends through layer 0 "
+                 "of a stacked-layer model, and this one has none")
     gen = torch.Generator(device).manual_seed(args.seed)
     params = model.init(cfg, gen, device)
     cache = PagedKVCache(cfg, PagedCacheConfig(

@@ -118,7 +118,7 @@ def norm(x, gamma, cfg):
 
 
 # --------------------------------------------------------------------------
-# Rotary embeddings (RoPE; M-RoPE comes with the VLM slice)
+# Rotary embeddings (RoPE, and Qwen2-VL's M-RoPE)
 # --------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
@@ -135,12 +135,33 @@ def apply_rope(x, positions, theta: float = 10000.0):
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device).float()
     ang = positions[..., None].float() * freqs               # (...,S,D/2)
+    return _rotate_pairs(x, ang)
+
+
+def _rotate_pairs(x, ang):
+    """Each interleaved pair of x (..., S, H, D) rotated by its angle
+    ``ang`` (..., S, D/2), the same for every head."""
     ang = ang[..., None, :]                                  # (...,S,1,D/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., ::2], x[..., 1::2]
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def apply_mrope(x, positions3, sections=(16, 24, 24), theta: float = 1e6):
+    """Qwen2-VL multimodal RoPE: the head_dim/2 rotary frequencies split
+    into (temporal, height, width) sections, each driven by its own
+    position stream.  x: (..., S, H, D); positions3: (..., S, 3) int."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim/2 = {d // 2}")
+    freqs = rope_freqs(d, theta, x.device).float()           # (D/2,)
+    sec_id = torch.cat([torch.full((s,), i, device=x.device)
+                        for i, s in enumerate(sections)])
+    pos = positions3.float()[..., sec_id]                    # (...,S,D/2)
+    return _rotate_pairs(x, pos * freqs)
 
 
 def _einsum(eq: str, a, b):
@@ -170,7 +191,10 @@ def attention_specs(cfg) -> Params:
 
 def _rope_qk(q, k, positions, cfg):
     if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE is not yet ported")
+        # theta: apply_mrope's default (1e6), not cfg.rope_theta, as the
+        # JAX package calls it
+        return (apply_mrope(q, positions, cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.mrope_sections))
     if cfg.rope == "rope":
         return (apply_rope(q, positions, cfg.rope_theta),
                 apply_rope(k, positions, cfg.rope_theta))

@@ -7,9 +7,10 @@ as in the JAX package, and the forward pass walks them with a Python loop
 and grad enabled, each layer runs under non-reentrant
 ``torch.utils.checkpoint``, as the JAX forward wraps it in
 ``jax.checkpoint``: the backward pass runs it again; under ``no_grad`` the
-loop is unchanged.  Covers the dense and MoE families (the FFN is
-``modules.ffn``, a MoE FFN where ``n_experts > 1``); the frame frontend
-(audio, VLM) and M-RoPE come with their slices.
+loop is unchanged.  Covers the families dense, moe (the FFN is
+``modules.ffn``, a MoE FFN where ``n_experts > 1``), vlm (M-RoPE over
+(B, S, 3) positions) and audio (encoder-only: precomputed frame embeddings
+through a linear adapter, non-causal attention, no decode).
 """
 
 from __future__ import annotations
@@ -22,10 +23,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .config import ModelConfig
-from .modules import (ParamSpec, _einsum, apply_rope, attention_specs,
-                      cross_entropy, ffn, ffn_specs, gqa_attention,
-                      materialize, norm, stack_specs, unembed,
-                      unstack_layers)
+from .modules import (ParamSpec, _einsum, apply_mrope, apply_rope,
+                      attention_specs, cross_entropy, ffn, ffn_specs,
+                      gqa_attention, materialize, norm, stack_specs,
+                      unembed, unstack_layers)
 
 Params = Dict[str, Any]
 
@@ -70,15 +71,19 @@ def _layer(cfg: ModelConfig, x, lp: Params, positions, causal: bool):
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict):
+    cdt = cfg.compute_dtype
     if cfg.frontend != "none":
-        raise NotImplementedError("frame/patch frontends are not yet ported")
+        # the tower is a stub in both packages: frames (B, S, D) arrive
+        # precomputed and a linear adapter stands in for it
+        return batch["frames"].to(cdt) @ params["adapter"].to(cdt)
     # Rows first, then the cast: the same values as casting the table.
-    return params["embed"][batch["tokens"]].to(cfg.compute_dtype)
+    return params["embed"][batch["tokens"]].to(cdt)
 
 
 def forward(params: Params, batch: Dict, cfg: ModelConfig):
-    """batch: tokens (B,S), positions (B,S), as tensors on the params'
-    device.  Returns logits (B,S,V) in the compute dtype."""
+    """batch: tokens (B,S) or frames (B,S,D); positions (B,S) or (B,S,3)
+    for M-RoPE; as tensors on the params' device.  Returns logits (B,S,V)
+    in the compute dtype."""
     x = _embed_inputs(params, cfg, batch)
     positions = batch["positions"]
     remat = torch.is_grad_enabled() and cfg.remat != "none"
@@ -114,15 +119,21 @@ def decode_step(params: Params, cache, lengths, tokens, cfg: ModelConfig
     """One-token decode.  cache: (L,2,B,S,kvH,hd); lengths (B,) current
     sequence lengths; tokens (B,1).  Returns (logits, cache).  The token's
     K/V rows are written into ``cache`` in place (the JAX package returns a
-    new cache), so a step costs no copy of the cache."""
-    if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE is not yet ported")
+    new cache), so a step costs no copy of the cache.  Under M-RoPE the
+    token's three position streams are all ``lengths``, as in the JAX
+    package.  A model with a frame frontend (hubert) has no token
+    embedding and no decode, in either package."""
+    if cfg.frontend != "none":
+        raise ValueError(f"{cfg.name} is an encoder over frame embeddings "
+                         "and has no decode step")
     b = tokens.shape[0]
     max_seq = cache.shape[3]
     cdt = cfg.compute_dtype
     rows = torch.arange(b, device=tokens.device)
     x = params["embed"][tokens].to(cdt)                        # (B,1,D)
     positions = lengths[:, None]                               # (B,1)
+    if cfg.rope == "mrope":
+        positions = positions[..., None].repeat(1, 1, 3)       # (B,1,3)
     kv_pos = torch.arange(max_seq, device=tokens.device)[None, :]
     kv_pos = torch.where(kv_pos <= lengths[:, None], kv_pos, -1)  # (B,S)
     for i, lp in enumerate(unstack_layers(params["layers"])):
@@ -133,6 +144,8 @@ def decode_step(params: Params, cache, lengths, tokens, cfg: ModelConfig
         v_new = _einsum("bsd,dhk->bshk", xn, lp["attn"]["wv"]).to(cdt)
         if cfg.rope == "rope":
             k_new = apply_rope(k_new, positions, cfg.rope_theta)
+        elif cfg.rope == "mrope":
+            k_new = apply_mrope(k_new, positions, cfg.mrope_sections)
         cache[i, 0, rows, lengths] = k_new[:, 0].to(cache.dtype)
         cache[i, 1, rows, lengths] = v_new[:, 0].to(cache.dtype)
         h, _ = gqa_attention(lp["attn"], xn, positions, cfg, causal=False,

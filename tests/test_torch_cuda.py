@@ -484,10 +484,33 @@ def test_flash_attention_bwd_kernel_head_widths(cuda, d, dtype, causal):
     (1, 200, 8, 2, 64, torch.float32, False),
     (2, 4096, 24, 8, 64, torch.bfloat16, True),
     (1, 2048, 48, 8, 128, torch.bfloat16, True),
+    (1, 4096, 32, 8, 128, torch.bfloat16, True),     # jamba-v0.1-52b
+    (2, 4096, 12, 2, 128, torch.bfloat16, True),     # qwen2-vl-2b
 ])
 def test_flash_attention_bwd_kernel_model_shapes(cuda, b, s, h, hkv, d,
                                                  dtype, causal):
     _check_bwd(cuda, b, s, h, hkv, d, dtype, causal)
+
+
+# The forward at the prefill shapes of jamba-v0.1-52b (32 heads over 8) and
+# qwen2-vl-2b (12 over 2: g = 6 over only 2 KV heads), bf16 causal, against
+# the plain version at 2e-2 (the bf16 tolerance above).
+@pytest.mark.parametrize("b,s,h,hkv,d", [(2, 4096, 32, 8, 128),
+                                         (2, 4096, 12, 2, 128)])
+def test_flash_attention_kernel_at_new_model_shapes(cuda, b, s, h, hkv, d):
+    gen = torch.Generator(cuda).manual_seed(h + hkv)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               .to(torch.bfloat16) for shape in
+               [(b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)])
+    before = fa.launches
+    out = ops.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True).float()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all())
+    assert not bool(((out.float() - want).abs()
+                     > 2e-2 + 2e-2 * want.abs()).any())
 
 
 # lse: the forward with a pointer writes each row's log-sum-exp (held to the
@@ -624,6 +647,7 @@ def test_ssd_scan_kernel_stays_finite_where_the_decay_overflows(cuda):
     (2, 1024, 8, 64, 16, (0.1, 0.9), False),
     (2, 4096, 4, 64, 128, (0.001, 0.05), True),
     (1, 512, 3, 48, 64, (0.1, 0.9), True),
+    (2, 4096, 128, 64, 16, (0.1, 0.9), False),     # jamba's prefill
 ])
 def test_ssd_scan_kernel_at_model_shapes(cuda, b, s, h, p, n, dt_range,
                                          with_state):
@@ -857,6 +881,7 @@ def test_ssd_scan_bwd_kernel_matches_plain(cuda, b, s, h, p, n, chunk,
     (2, 4096, 4, 64, 128, (0.001, 0.05), None, True),
     (1, 512, 3, 48, 64, (0.1, 0.9), None, True),
     (2, 512, 4, 64, 128, (0.7, 0.82), -0.95, True),
+    (1, 4096, 128, 64, 16, (0.1, 0.9), None, False),   # jamba's training
 ])
 def test_ssd_scan_bwd_kernel_at_model_shapes(cuda, b, s, h, p, n, dt_range,
                                              a_val, extra):
@@ -1230,3 +1255,93 @@ def test_moe_train_step_repeats_bit_for_bit(cuda):
     assert [n for (n, x), (_, y) in zip(*runs) if not torch.equal(x, y)] \
         == []
     assert np.isfinite(float(dict(runs[0])["metrics/loss"]))
+
+
+def test_hybrid_train_step_runs_through_the_kernels(cuda):
+    """build_train_step for jamba-v0.1-52b SMOKE in f32 under remat "full",
+    3 steps: a step launches K3 twice and K3-bwd once for the attention
+    position, K4 twice and K4-bwd once for each of the 7 Mamba positions;
+    the first step's loss and grad norm against the same step with both
+    replaced by their plain versions (naive attention, autograd through
+    ref.ssd_chunked_ref): 1e-5 relative for the loss, 1e-2 for the grad
+    norm, which F7's std-1 weights leave ill conditioned
+    (tests/test_torch_train.py's jamba case says why)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models import hybrid
+    from repro_torch.train import (TrainConfig, build_train_step,
+                                   init_state, synthetic_batch)
+    base = dataclasses.replace(get_config("jamba-v0.1-52b", smoke=True),
+                               compute_dtype=torch.float32, remat="full")
+    first = {}
+    for impl in ["kernel", "plain"]:
+        cfg = dataclasses.replace(
+            base, attn_impl="chunked" if impl == "kernel" else "naive")
+        params = hybrid.init(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+        step, _ = build_train_step(cfg, 2, 64, TrainConfig())
+        opt = init_state(params, TrainConfig().adamw)
+        kernel_ssd = ops.ssd
+        if impl == "plain":
+            ops.ssd = ref.ssd_chunked_ref
+        try:
+            for i in range(3 if impl == "kernel" else 1):
+                fa.launches = fa.bwd_launches = 0
+                ssd_scan.launches = ssd_scan.bwd_launches = 0
+                params, opt, m = step(params, opt,
+                                      synthetic_batch(cfg, i, 2, 64))
+                torch.cuda.synchronize()
+                got = (fa.launches, fa.bwd_launches, ssd_scan.launches,
+                       ssd_scan.bwd_launches)
+                assert got == ((2, 1, 14, 7) if impl == "kernel"
+                               else (0, 0, 0, 0))
+                assert np.isfinite(float(m["loss"])) and \
+                    np.isfinite(float(m["grad_norm"]))
+                if i == 0:
+                    first[impl] = (float(m["loss"]), float(m["grad_norm"]))
+        finally:
+            ops.ssd = kernel_ssd
+    (l1, n1), (l0, n0) = first["kernel"], first["plain"]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    assert abs(n1 - n0) <= 1e-2 * n0
+
+
+def test_hybrid_train_step_at_full_width_repeats_bit_for_bit(cuda):
+    """A jamba-v0.1-52b train step at full width, cut to one super-block
+    (8 of 32 layers) and 2 of 16 experts (3.40B params), batch 1, seq 256,
+    bf16 compute, remat "full", taken twice from one state (after one
+    step, so that the moments are not zero).  The state (params, mu, nu:
+    40.8 GB) fits the card once, not twice, so the state before the step
+    is kept on the host and put back for the second run, and the first
+    run's results are kept on the host to compare: every leaf, the loss
+    and the grad norm bit for bit."""
+    from repro_torch.checkpoint import named_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid
+    from repro_torch.train import (TrainConfig, build_train_step,
+                                   init_state, synthetic_batch)
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=8,
+                              n_experts=2, attn_impl="chunked")
+    tc = TrainConfig()
+    params = hybrid.init(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    step, _ = build_train_step(cfg, 1, 256, tc, cuda)
+    opt = init_state(params, tc.adamw)
+    params, opt, _ = step(params, opt, synthetic_batch(cfg, 0, 1, 256))
+    batch = synthetic_batch(cfg, 1, 1, 256)
+    state = [x for _, x in named_leaves({"params": params, "opt": opt})]
+    host = [x.to("cpu", copy=True) for x in state]
+    _, _, m1 = step(params, opt, batch)
+    # leaf by leaf: the first run's result to the host, the state before
+    # it back to the card (one copy of the state on the host at a time)
+    for i, x in enumerate(state):
+        first = x.to("cpu", copy=True)
+        x.copy_(host[i])
+        host[i] = first
+    fa.launches = 0
+    _, _, m2 = step(params, opt, batch)
+    torch.cuda.synchronize()
+    assert fa.launches == 2
+    assert [i for i, (x, h) in enumerate(zip(state, host))
+            if not torch.equal(x.cpu(), h)] == []
+    assert torch.equal(m1["loss"], m2["loss"])
+    assert torch.equal(m1["grad_norm"], m2["grad_norm"])
+    assert np.isfinite(float(m1["loss"]))

@@ -14,11 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as J_ARCHS
 from repro.configs import get_config as j_get_config
 from repro.models import get_model as j_get_model
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch import serve, train
-from repro_torch.models import ssm, transformer
+from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models.modules import ParamSpec, materialize
 from repro_torch.serving import PagedCacheConfig, PagedKVCache
 from repro_torch.train import (build_decode_step, build_prefill_step,
@@ -48,10 +49,15 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(res.stdout) >= 16      # every module was imported
 
 
+def test_archs_are_the_jax_packages():
+    assert set(ARCHS) == set(J_ARCHS) and len(ARCHS) == len(set(ARCHS))
+
+
 @pytest.mark.parametrize("arch", ["olmo-1b", "phi3-mini-3.8b",
                                   "starcoder2-3b", "phi3-medium-14b",
                                   "mamba2-370m", "granite-moe-3b-a800m",
-                                  "grok-1-314b"])
+                                  "grok-1-314b", "jamba-v0.1-52b",
+                                  "qwen2-vl-2b", "hubert-xlarge"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_jax(arch, smoke):
     want, got = j_get_config(arch, smoke=smoke), get_config(arch, smoke=smoke)
@@ -77,7 +83,10 @@ def _flat(tree, prefix=""):
 
 @pytest.mark.parametrize("arch,model", [("olmo-1b", transformer),
                                         ("mamba2-370m", ssm),
-                                        ("granite-moe-3b-a800m", transformer)])
+                                        ("granite-moe-3b-a800m", transformer),
+                                        ("jamba-v0.1-52b", hybrid),
+                                        ("qwen2-vl-2b", transformer),
+                                        ("hubert-xlarge", transformer)])
 def test_params_from_numpy_round_trips_jax_init(arch, model):
     cfg = j_get_config(arch, smoke=True)
     params = j_get_model(cfg).init(cfg, jax.random.PRNGKey(3))
@@ -140,6 +149,20 @@ ENTRY_POINTS = {
     "build_train_step mamba2": lambda: build_train_step(
         get_config("mamba2-370m", smoke=True), 1, 16),
     "train.main": lambda: train.main(["--smoke", "--steps", "1"]),
+    "hybrid.init": lambda: hybrid.init(
+        get_config("jamba-v0.1-52b", smoke=True), torch.Generator()),
+    "hybrid.init_cache": lambda: hybrid.init_cache(
+        get_config("jamba-v0.1-52b", smoke=True), 1, 8),
+    "build_train_step jamba": lambda: build_train_step(
+        get_config("jamba-v0.1-52b", smoke=True), 1, 16),
+    "build_decode_step jamba": lambda: build_decode_step(
+        get_config("jamba-v0.1-52b", smoke=True), 1, 16),
+    "build_prefill_step qwen2-vl": lambda: build_prefill_step(
+        get_config("qwen2-vl-2b", smoke=True), 1, 16),
+    "build_train_step hubert": lambda: build_train_step(
+        get_config("hubert-xlarge", smoke=True), 1, 16),
+    "train.main jamba": lambda: train.main(
+        ["--arch", "jamba-v0.1-52b", "--smoke", "--steps", "1"]),
 }
 
 

@@ -7,9 +7,11 @@ import re
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
+from repro.launch import serve as j_serve
 from repro.models import get_model as j_get_model
 from repro.serving import PagedCacheConfig as JPagedCacheConfig
 from repro.serving import PagedKVCache as JPagedKVCache
@@ -116,6 +118,26 @@ def test_moe_driver_matches_jax_kernel_path(capsys):
     attention (24 heads over 8 at full width, 6 over 2 at SMOKE); the
     traffic, so every count, is olmo's."""
     _check_driver_against_jax("granite-moe-3b-a800m", capsys)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "hubert-xlarge"])
+def test_vlm_and_audio_drivers_match_jax_kernel_path(arch, capsys):
+    """qwen2-vl-2b (12 heads over 2 at full width, 4 over 2 at SMOKE) and
+    hubert-xlarge (16 over 16, D 80; 4 over 4 at SMOKE): the driver
+    attends through layer 0's attention projections, with no RoPE and no
+    frontend on that path in either package; the counts are olmo's."""
+    _check_driver_against_jax(arch, capsys)
+
+
+def test_hybrid_is_refused_by_both_drivers():
+    """jamba-v0.1-52b keeps its layers under ``blocks``: the JAX driver
+    fails on ``params["layers"]``, the port's refuses the arch up front
+    (exit 2), before it draws any weight."""
+    with pytest.raises(KeyError, match="layers"):
+        j_serve.main(["--arch", "jamba-v0.1-52b"])
+    with pytest.raises(SystemExit) as refused:
+        serve.main(["--arch", "jamba-v0.1-52b", "--device", "cpu"])
+    assert refused.value.code == 2
 
 
 def _check_driver_against_jax(arch, capsys):

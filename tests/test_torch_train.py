@@ -126,10 +126,23 @@ def test_adamw_matches_jax(moments):
                            _tree(np.random.default_rng(0))["final_norm"])
 
 
-def _run_both(arch, dtype, impl, microbatches=1):
+def _batch(cfg, step, b, s):
+    """synthetic_batch, with three position streams that differ under
+    M-RoPE, (t, 2t, 3t): the batch repeats one stream, on which M-RoPE is
+    RoPE at theta 1e6."""
+    batch = j_data.synthetic_batch(cfg, step, b, s)
+    if cfg.rope == "mrope":
+        t = batch["positions"][..., :1]
+        batch["positions"] = np.concatenate([t, 2 * t, 3 * t], axis=-1)
+    return batch
+
+
+def _run_both(arch, dtype, impl, microbatches=1, resync=False, **kw):
     """STEPS train steps of the JAX step and of the port's from JAX's init;
-    returns ([(jax metrics, port metrics)], jax params, port params)."""
-    jc, tc = _cfgs(arch, dtype, attn_impl=impl)
+    returns ([(jax metrics, port metrics)], jax params, port params).  With
+    ``resync`` the port takes JAX's params and moments before every step,
+    so that each step starts from one state."""
+    jc, tc = _cfgs(arch, dtype, attn_impl=impl, **kw)
     jp = j_get_model(jc).init(jc, jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     adamw = j_opt.AdamWConfig(lr=LR)
@@ -142,7 +155,16 @@ def _run_both(arch, dtype, impl, microbatches=1):
     jo, to = j_opt.init_state(jp, adamw), init_state(tp, tcfg.adamw)
     metrics = []
     for i in range(STEPS):
-        batch = j_data.synthetic_batch(jc, i, BATCH, SEQ)
+        if resync:
+            tp = params_from_numpy(jax.tree.map(np.asarray, jp),
+                                   device="cpu")
+            to = params_from_numpy(jax.tree.map(np.asarray, jo),
+                                   device="cpu")
+            to["count"] = to["count"].to(torch.int32)
+            to["mu"], to["nu"] = (tree_unflatten(to[k], [
+                x.to(tcfg.adamw.moment_dtype) for x in tree_leaves(to[k])])
+                for k in ("mu", "nu"))
+        batch = _batch(jc, i, BATCH, SEQ)
         jp, jo, jm = jstep(jp, jo, {k: jnp.asarray(v)
                                     for k, v in batch.items()})
         tp, to, tm = tstep(tp, to, batch)
@@ -158,8 +180,9 @@ TRAIN_CASES = [(arch, impl, dtype)
                for dtype in ["f32", "bf16"]] + \
     [("mamba2-370m", "naive", dtype) for dtype in ["f32", "bf16"]] + \
     [(arch, "chunked", dtype)
-     for arch in ["granite-moe-3b-a800m", "grok-1-314b"]
-     for dtype in ["f32", "bf16"]]
+     for arch in ["granite-moe-3b-a800m", "grok-1-314b", "qwen2-vl-2b"]
+     for dtype in ["f32", "bf16"]] + \
+    [("hubert-xlarge", "naive", dtype) for dtype in ["f32", "bf16"]]
 
 
 @pytest.mark.parametrize("arch,impl,dtype", TRAIN_CASES)
@@ -169,9 +192,35 @@ def test_train_step_matches_jax(arch, impl, dtype):
     CPU the chunked branch runs K3's plain forward and backward; mamba2's
     scan goes through SSDScan, the plain chunked forward and its plain
     backward (``ref.ssd_chunked_bwd_ref``)."""
-    metrics, jp, tp = _run_both(arch, dtype, impl)
-    loss_tol, norm_tol, worst = ((1e-5, 1e-4, 2 * LR * STEPS)
-                                 if dtype == "f32" else (2e-3, 0.6, 10 * LR))
+    _check_train_steps(*_run_both(arch, dtype, impl), dtype)
+
+
+@pytest.mark.parametrize("n_layers", [pytest.param(8, id="1block"),
+                                      pytest.param(16, id="2blocks")])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_hybrid_train_step_matches_jax(dtype, n_layers):
+    """jamba-v0.1-52b, 3 steps at one and two blocks, each from JAX's
+    state (``resync``).  On independent trajectories the f32 grad norms
+    part by ~2% at step 1 (one block): AdamW's first step moves every
+    param whose gradient sign differs between the frameworks by 2·lr, and
+    under F7's std-1 weights that is a large move.  From one state the
+    loss agrees to ~1e-7 and is held to 1e-5, but the gradient is ill
+    conditioned: at the state entering step 2 (two blocks) scaling every
+    param by 1 ± 2^-23 moves the port's own grad norm by up to 9.6e-4
+    relative, with no token routed differently, and JAX's lies 1.9e-3
+    from the port's.  So the f32 grad norm is held to 1e-2 here (1e-4
+    for the other models); bf16 and the params as in
+    test_train_step_matches_jax."""
+    _check_train_steps(*_run_both("jamba-v0.1-52b", dtype, "chunked",
+                                  resync=True, n_layers=n_layers), dtype,
+                       norm_tol=1e-2 if dtype == "f32" else None)
+
+
+def _check_train_steps(metrics, jp, tp, dtype, norm_tol=None):
+    loss_tol, default_tol, worst = ((1e-5, 1e-4, 2 * LR * STEPS)
+                                    if dtype == "f32"
+                                    else (2e-3, 0.6, 10 * LR))
+    norm_tol = norm_tol or default_tol
     for jm, tm in metrics:
         assert np.isfinite(tm["loss"]) and np.isfinite(tm["grad_norm"])
         assert abs(tm["loss"] - jm["loss"]) <= loss_tol * abs(jm["loss"])
@@ -191,7 +240,7 @@ def _grads_against_jax(jc, tc):
     the loss does not read (olmo's norm gains) get zeros on both sides."""
     jp = j_get_model(jc).init(jc, jax.random.PRNGKey(1))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
-    batch = j_data.synthetic_batch(jc, 0, BATCH, SEQ)
+    batch = _batch(jc, 0, BATCH, SEQ)
     jloss, jg = jax.value_and_grad(j_get_model(jc).loss_fn)(
         jp, {k: jnp.asarray(v) for k, v in batch.items()}, jc)
     leaves = [p.detach().requires_grad_() for p in tree_leaves(tp)]
@@ -217,7 +266,9 @@ def _grads_against_jax(jc, tc):
                                        ("starcoder2-3b", "chunked"),
                                        ("mamba2-370m", "naive"),
                                        ("granite-moe-3b-a800m", "chunked"),
-                                       ("grok-1-314b", "naive")])
+                                       ("grok-1-314b", "naive"),
+                                       ("qwen2-vl-2b", "chunked"),
+                                       ("hubert-xlarge", "naive")])
 def test_grads_match_jax(arch, impl):
     """Each leaf's gradient against jax.value_and_grad of the JAX loss."""
     _grads_against_jax(*_cfgs(arch, "f32", attn_impl=impl))
@@ -303,7 +354,8 @@ def _abstract(tree):
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-370m",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m", "jamba-v0.1-52b",
+                                  "qwen2-vl-2b", "hubert-xlarge"])
 def test_train_step_inputs_match_jax(arch):
     jc, tc = j_get_config(arch, smoke=True), get_config(arch, smoke=True)
     *_, want = j_step.build_train_step(jc, _mesh(), 4, 16)
@@ -339,6 +391,12 @@ def test_train_driver_runs_the_moe_archs(arch):
     _check_driver_lines(arch)
 
 
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "qwen2-vl-2b",
+                                  "hubert-xlarge"])
+def test_train_driver_runs_the_hybrid_vlm_and_audio_archs(arch):
+    _check_driver_lines(arch)
+
+
 def _check_driver_lines(arch):
     rc, lines = _driver(DRIVER + ["--arch", arch, "--steps", "3"])
     assert rc == 0 and lines[-1] == "training done"
@@ -369,7 +427,8 @@ def _steps(lines):
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-370m",
-                                  "granite-moe-3b-a800m", "grok-1-314b"])
+                                  "granite-moe-3b-a800m", "grok-1-314b",
+                                  "jamba-v0.1-52b"])
 def test_train_driver_crash_resume_replays_identically(arch, tmp_path):
     """Crash after step 5 (saves after steps 2 and 5), resume, and end
     with the same bits in every leaf as a run never interrupted."""
