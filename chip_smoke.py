@@ -94,7 +94,25 @@ Phases, in order; any failure exits non-zero:
    (non-causal, D 80: no kernel) and the SMOKE train driver.  Phase 2
    holds and times K3 and K3-bwd at jamba's and qwen2-vl's shapes, K4
    and K4-bwd at jamba's.
-12. Checkpoints (``[checkpoint]``): crash and resume through the train
+12. The mesh and the parallel modules (``[parallel]``): olmo-1b trains at
+   full width (batch 2, seq 4096, bf16 compute, f32 params, chunked
+   attention) through ``build_train_step`` on ``make_host_mesh()`` under
+   remat "dots_with_no_batch_dims", 4 steps (K3 32 and K3-bwd 16 launches
+   a step, by the counters and by the profiler: K3's forward runs again
+   in the backward pass, since no dispatch mode sees its launch), then
+   under "full" and "none", each step's time by CUDA events and each
+   policy's peak memory, which must order full < dots < none; one f32
+   step at full width cut to 2 layers gives the same bits in the loss and
+   every gradient under all three policies; ``int8_allreduce`` in a
+   world-size-1 NCCL group (a FileStore in a temporary directory) on the
+   embedding's gradient equals ``int8_quantize`` dequantized and the CPU
+   function's result bit for bit, and is timed;
+   ``examples/torch_serve_paged.py`` prints its twin's line; and the
+   dry-run of every (arch × shape) cell on both production meshes
+   (``python -m repro_torch.launch.dryrun --all --both-meshes --out ""``,
+   host work on meta tensors, in a subprocess started after the timed
+   work) prints no FAIL.
+13. Checkpoints (``[checkpoint]``): crash and resume through the train
    driver on the card for olmo-1b and mamba2-370m at SMOKE size (crash
    after step 5 of 8 with a checkpoint every 3 steps, resume, and an
    uninterrupted run): the resumed run prints ``resumed from step 5`` and
@@ -106,7 +124,7 @@ Phases, in order; any failure exits non-zero:
    down as the store fills (``tools/ckpt_throughput.py`` takes more).
 
 The last lines are a JSON object per kernel (with its launches on the
-phase 11 paths under ``paths``), the card's name and power limit, and
+phase 11 and 12 paths under ``paths``), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU fallback: with
 no card the script exits non-zero before doing anything.
 """
@@ -135,6 +153,15 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+# The published H100 SXM peaks (HBM3 rate, f32 outside the tensor cores,
+# dense TF32 and bf16 on the tensor cores) and each kernel's least work:
+# bounds are stated against them.
+from repro_torch.kernels.cost import (  # noqa: E402
+    BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S, TF32_FLOPS,
+    attention_bwd_flops_bytes, flash_attention_flops_bytes,
+    gather_flops_bytes, paged_attention_flops_bytes, ssd_bwd_flops_bytes,
+    ssd_flops_bytes)
+
 SERVE_FULL = ["--arch", "olmo-1b", "--full"]
 EXPECT_FULL = ("completed=24/24 decode_steps=62 compaction_steps=12 "
                "compaction_dmas=2880 alloc_failures=0")
@@ -151,13 +178,6 @@ EXPECT_GRANITE = ("completed=24/24 decode_steps=62 compaction_steps=12 "
 SERVE_SMOKE = ["--arch", "olmo-1b"]
 EXPECT_SMOKE = ("completed=24/24 decode_steps=62 compaction_steps=12 "
                 "compaction_dmas=360 alloc_failures=0")
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 outside the
-# tensor cores, dense TF32 and bf16 on the tensor cores.  Bounds are stated against
-# them.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-TF32_FLOPS = 495e12
-BF16_FLOPS = 989e12
 SEED = 0
 
 
@@ -330,10 +350,9 @@ def phase_paged_attention():
                            .scaled_dot_product_attention(q4, kg, vg,
                                                          attn_mask=mask))
         tokens = int(lengths.sum())
-        nbytes = (2 * q.numel() * q.element_size()
-                  + 2 * tokens * hkv * d * k_pool.element_size()
-                  + pt.numel() * 4 + lengths.numel() * 4)
-        flops = 4 * tokens * h * d
+        flops, nbytes = paged_attention_flops_bytes(
+            b, h, hkv, d, tokens, pt.shape[1], q.element_size(),
+            k_pool.element_size())
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         op_ms = flops / F32_FLOPS * 1e3
         record = dict(
@@ -449,9 +468,8 @@ def long_paged_attention(pa, ref, gen, rng, label, b, h, hkv, lo, copies):
                                enable_gqa=h != hkv), iters=10)
     del kg, vg
     tokens = int(lengths_np.sum())
-    nbytes = (2 * q.numel() * 4 + 2 * tokens * hkv * d * 2
-              + b * n_pages * 4 + b * 4)
-    flops = 4 * tokens * h * d
+    flops, nbytes = paged_attention_flops_bytes(b, h, hkv, d, tokens,
+                                                n_pages, 4, 2)
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = flops / F32_FLOPS * 1e3
     bound_ms = max(byte_ms, op_ms)
@@ -524,8 +542,9 @@ def phase_gc_compact():
     plain_ms = device_ms("K2 plain", lambda: ref.gather_pages_ref(src, idx))
     library_ms = device_ms("K2 index_select",
                        lambda: torch.index_select(src, 1, idx))
-    nbytes = 2 * len(order) * src.shape[0] * page * src.shape[-1] \
-        * src.element_size() + (len(blocks) + len(tail)) * 4
+    _, nbytes = gather_flops_bytes(len(order), len(blocks) + len(tail),
+                                   src.shape[0], page, src.shape[-1],
+                                   src.element_size())
     record = dict(
         name="gather_page_blocks", route="cuda",
         source="src/repro_torch/kernels/csrc/gc_compact.cu",
@@ -596,8 +615,8 @@ def phase_flash_attention():
                                    qt, kt, vt, is_causal=True,
                                    enable_gqa=h != hkv), iters=20)
         # q, k and v read once, the output (q's size) written once
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        flops = 4 * b * h * d * s * (s + 1) // 2
+        flops, nbytes = flash_attention_flops_bytes(b, s, h, hkv, d,
+                                                    q.element_size())
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         op_ms = flops / BF16_FLOPS * 1e3
         bound_ms = max(byte_ms, op_ms)
@@ -620,18 +639,6 @@ def phase_flash_attention():
             bound_by=bound_by, library_ms=library_ms)
         print(f"[K3] {label}: plain {plain_ms:.4f} ms", flush=True)
     return record
-
-
-def attention_bwd_flops_bytes(q, k):
-    """K3-bwd's least work: five products of the forward's size (S = Q Kᵀ,
-    dP = dO Vᵀ, dV = Pᵀ dO, dQ = dS K, dK = dSᵀ Q), each 2 b h d s(s+1)/2
-    flops under causal masking; and its bytes: q, k, v, o, dO and lse read
-    once, dq, dk and dv written once."""
-    b, s, h, d = q.shape
-    flops = 5 * 2 * b * h * d * s * (s + 1) // 2
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
-        + b * h * s * 4
-    return flops, nbytes
 
 
 def phase_flash_attention_bwd():
@@ -759,19 +766,6 @@ def bwd_launch_times(call, calls: int = 3):
         print(f"[K3 bwd]   {us / n / 1e3:.4f} ms a launch "
               f"({100 * us / total:.1f}%) x{n // calls} a call: {name[:80]}",
               flush=True)
-
-
-def ssd_flops_bytes(b, s, h, p, n, with_state):
-    """The SSD scan's least work: whatever the chunking, each step's
-    (x dt) outer B enters the (P, N) state and each step's y reads the state
-    through C, one FMA each per state entry (4 P N flops per (b, step, h));
-    the chunked form's intra-chunk triangle comes on top, so it is not
-    counted.  And its bytes: each f32 input read once and each output
-    written once."""
-    flops = 4 * b * s * h * p * n
-    nbytes = 4 * (2 * b * s * h * p + 2 * b * s * n + b * s * h + h
-                  + b * h * p * n * (2 if with_state else 1))
-    return flops, nbytes
 
 
 def phase_ssd_scan():
@@ -926,22 +920,6 @@ def ssd_bwd_route(names):
     if tc == mma:
         fail(f"ssd_scan_bwd: no single route in {names}")
     return "tensor-core (wgmma)" if tc else "mma.sync"
-
-
-def ssd_bwd_flops_bytes(b, s, h, p, n, chunk, with_state, with_dfinal):
-    """K4-bwd's least work: each of the forward's two products per (b, step,
-    h) and state entry (x dt outer B into the state, C through the state)
-    has a gradient for each of its operands, so twice the forward's, 8 P N
-    flops per (b, step, h).  And its bytes: x, dt, a, B, C, dy, the
-    forward's states and sums of dA (its workspace), the initial state and
-    dfinal where given, each read once; dx, ddt, da, dB, dC and dinit
-    written once."""
-    nc = s // chunk
-    flops = 8 * b * s * h * p * n
-    nbytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 2 * h + 4 * b * s * n
-                  + b * h * nc * (p * n + 1)
-                  + b * h * p * n * (2 * with_state + with_dfinal))
-    return flops, nbytes
 
 
 def phase_ssd_scan_bwd():
@@ -1128,33 +1106,38 @@ def phase_prefill_f32_check(params):
                              params)
 
 
-def train_setup(cfg, b, s, lr=1e-3, seed=SEED):
-    """Params from seed, AdamW state and the train step, all on the card."""
+def train_setup(cfg, b, s, lr=1e-3, seed=SEED, mesh=None):
+    """Params from seed, AdamW state and the train step (on ``mesh`` where
+    given), all on the card."""
     from repro_torch.models import get_model
     from repro_torch.train import (AdamWConfig, TrainConfig,
                                    build_train_step, init_state)
     tc = TrainConfig(adamw=AdamWConfig(lr=lr))
     params = get_model(cfg).init(cfg, torch.Generator("cuda").manual_seed(seed),
                                  "cuda")
-    step, _ = build_train_step(cfg, b, s, tc)
+    step, _ = build_train_step(cfg, b, s, tc, mesh=mesh)
     return params, init_state(params, tc.adamw), step
 
 
 def phase_train(cfg, kernels, parts, keep, labels=None, repeat=True,
-                shape=TRAIN):
+                shape=TRAIN, mesh=None, tag=None, profile=True, stats=None):
     """The training path at full width: TRAIN_STEPS steps of
     build_train_step (batch and seq ``shape``, AdamW lr 1e-3, params from
-    SEED, synthetic_batch steps 0-4), each step's loss, grad norm, time by
-    CUDA events and launches, then the same step taken twice from one
-    state (check_step_repeats; check_run_repeats where ``repeat`` is
-    "replay": a state that fits the card once, not twice; none where it
-    is false) and one profiled step.  ``kernels`` is [(name, its count now,
-    its launches a step)]; ``parts``, ``keep`` and ``labels`` go to
-    profile_train_step.  Returns each kernel's launches over the run."""
+    SEED, synthetic_batch steps 0-4; on ``mesh`` where given), each step's
+    loss, grad norm, time by CUDA events and launches, then the same step
+    taken twice from one state (check_step_repeats; check_run_repeats
+    where ``repeat`` is "replay": a state that fits the card once, not
+    twice; none where it is false) and, where ``profile``, one profiled
+    step.  ``kernels`` is [(name, its count now, its launches a step)];
+    ``parts``, ``keep`` and ``labels`` go to profile_train_step.  Returns
+    each kernel's launches over the run; ``stats``, where given, gets the
+    mean step time over steps 2-4 (``ms``), each step's (``times``), the
+    peak device memory in GiB (``peak_gib``), the profiled step's kernels
+    (``by_name``)."""
     from repro_torch.train import synthetic_batch
     b, s = shape
-    tag = f"[train {cfg.name}]"
-    params, opt, step = train_setup(cfg, b, s)
+    tag = tag or f"[train {cfg.name}]"
+    params, opt, step = train_setup(cfg, b, s, mesh=mesh)
     batches = [synthetic_batch(cfg, i, b, s) for i in range(TRAIN_STEPS + 1)]
     want = [per_step for *_, per_step in kernels]
     torch.cuda.synchronize()
@@ -1185,14 +1168,16 @@ def phase_train(cfg, kernels, parts, keep, labels=None, repeat=True,
             fail(f"train {cfg.name}: step {i} launched {got} for {want} "
                  f"({cfg.n_layers} layers under remat)")
     totals = [count() for _, count, _ in kernels]
+    ms = sum(times[1:]) / (len(times) - 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{tag} batch {b} seq {s}, bf16 compute, f32 params, remat "
-          f"{cfg.remat}: {TRAIN_STEPS} steps, "
-          f"{sum(times[1:]) / (len(times) - 1):.3f} ms a step over steps "
-          f"2-{TRAIN_STEPS}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{cfg.remat}: {TRAIN_STEPS} steps, {ms:.3f} ms a step over steps "
+          f"2-{TRAIN_STEPS}; peak device memory {peak:.2f} GiB; launches "
           + " ".join(f"{name}={n}" for (name, _, _), n in zip(kernels,
                                                                 totals)),
           flush=True)
+    if stats is not None:
+        stats.update(ms=ms, peak_gib=peak, times=times)
     if repeat == "replay":
         state = [params, opt]
         del params, opt
@@ -1200,8 +1185,12 @@ def phase_train(cfg, kernels, parts, keep, labels=None, repeat=True,
                                         batches)
     elif repeat:
         check_step_repeats(tag, step, params, opt, batches[TRAIN_STEPS])
-    profile_train_step(step, params, opt, batches[TRAIN_STEPS],
-                       f"{cfg.name} batch {b} seq {s}", parts, keep, labels)
+    if profile:
+        by_name = profile_train_step(step, params, opt, batches[TRAIN_STEPS],
+                                     f"{cfg.name} batch {b} seq {s}", parts,
+                                     keep, labels)
+        if stats is not None:
+            stats["by_name"] = by_name
     return totals
 
 
@@ -1351,7 +1340,8 @@ def profile_train_step(step, params, opt, batch, label, parts, keep,
     kernel, the matrix products), by the model's profiler ranges where
     ``labels`` names them, and the rest (elementwise passes, casts,
     reductions, the optimizer's update); then the AdamW update alone, by
-    CUDA events.  Printed only."""
+    CUDA events.  Returns the profiled step's {kernel: (device us,
+    count)}."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.train import AdamWConfig, apply_updates
@@ -1384,6 +1374,7 @@ def profile_train_step(step, params, opt, batch, label, parts, keep,
     torch.cuda.synchronize()
     print(f"[profile]   of which the AdamW update alone: "
           f"{e0.elapsed_time(e1):.3f} ms by CUDA events", flush=True)
+    return by_name
 
 
 def phase_train_f32_check():
@@ -2849,6 +2840,210 @@ def phase_model_zoo():
     return paths
 
 
+# The serve example's line: its twin's on the CPU (tests/test_torch_serving.py)
+EXPECT_SERVE_EXAMPLE = ("completed=16 decode_steps=34 compactions=7 "
+                        "compaction_dmas=248 fragmentation=0.000")
+REMAT_POLICIES = ("dots_with_no_batch_dims", "full", "none")
+
+
+def phase_parallel_train(mesh):
+    """olmo-1b at full width (batch 2, seq 4096, bf16 compute, f32 params,
+    chunked attention) through build_train_step on the host mesh, under
+    each remat policy: TRAIN_STEPS steps each, their time by CUDA events and
+    peak memory, and a profiled step under the two checkpointing policies
+    (device busy and idle: the selective checkpoint's dispatch mode is
+    host work).  Under "dots_with_no_batch_dims" and "full" K3 runs twice
+    a layer (the forward and its recompute: no dispatch mode sees its
+    ctypes launch, so the policy cannot save its output), under "none"
+    once; K3-bwd once a layer.  The profiler must find the same.  Returns
+    the dots policy's launches over its run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    base = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked")
+    n = base.n_layers
+    stats, totals = {}, None
+    for remat in REMAT_POLICIES:
+        cfg = dataclasses.replace(base, remat=remat)
+        fwd = n if remat == "none" else 2 * n
+        stats[remat] = {}
+        got = phase_train(
+            cfg, [("flash_attention", lambda: fa.launches, fwd),
+                  ("flash_attention_bwd", lambda: fa.bwd_launches, n)],
+            TRAIN_PARTS, ["flash_attention"], repeat=False, mesh=mesh,
+            tag=f"[parallel train {cfg.name} remat={remat}]",
+            profile=remat != "none", stats=stats[remat])
+        torch.cuda.empty_cache()
+        if remat == REMAT_POLICIES[0]:
+            totals = got
+            by_name = stats[remat]["by_name"]
+            k3 = sum(c for name, (_, c) in by_name.items()
+                     if "flash_attention" in name
+                     and "flash_attention_bwd" not in name)
+            dq = sum(c for name, (_, c) in by_name.items()
+                     if "flash_attention_bwd_dq" in name)
+            print(f"[parallel] the profiler's step under {remat}: "
+                  f"flash_attention kernels {k3}, flash_attention_bwd dq "
+                  f"kernels {dq}", flush=True)
+            if (k3, dq) != (2 * n, n):
+                fail(f"parallel: the profiler found {k3} K3 and {dq} K3-bwd "
+                     f"launches in a step under {remat}, for {2 * n} and {n}")
+    # the median of steps 2-4: one slow step (allocator growth, the host)
+    # moves the mean of three
+    print("[parallel] olmo-1b batch 2 seq 4096 by policy, the median of "
+          "steps 2-4 by CUDA events (each step's), peak: " + "; ".join(
+              f"{r} {float(np.median(stats[r]['times'][1:])):.3f} ms ("
+              + ", ".join(f"{t:.3f}" for t in stats[r]["times"][1:])
+              + f"), {stats[r]['peak_gib']:.2f} GiB" for r in REMAT_POLICIES),
+          flush=True)
+    peaks = [stats[r]["peak_gib"] for r in ("full", REMAT_POLICIES[0],
+                                            "none")]
+    if not peaks[0] < peaks[1] < peaks[2]:
+        fail(f"parallel: peaks full/dots/none {peaks} are not in order: the "
+             "policy saves no product, or every tensor")
+    return totals
+
+
+def phase_parallel_grads():
+    """One f32 step's loss and gradients of olmo-1b at full width cut to 2
+    layers (batch 2, seq 1024, chunked attention: K3 and K3-bwd in f32)
+    under each remat policy: the same bits in the loss and every leaf.
+    Returns the embedding's gradient, a full-width leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import synthetic_batch
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    base = dataclasses.replace(get_config("olmo-1b"), n_layers=2,
+                               compute_dtype=torch.float32,
+                               attn_impl="chunked")
+    params = full_params(base)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_batch(base, 0, 2, 1024).items()}
+    runs = {}
+    for remat in REMAT_POLICIES:
+        cfg = dataclasses.replace(base, remat=remat)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss = get_model(cfg).loss_fn(tree_unflatten(params, leaves), batch,
+                                      cfg)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        runs[remat] = (loss.detach(), grads)
+    torch.cuda.synchronize()
+    loss, grads = runs["none"]
+    same = {r: torch.equal(l, loss) and all(
+        torch.equal(a, b) for a, b in zip(g, grads))
+        for r, (l, g) in runs.items()}
+    print(f"[parallel grads] olmo-1b 2 layers f32 batch 2 seq 1024: loss "
+          f"{float(loss):.6f}; {len(grads)} leaves; the same bits as "
+          "\"none\" in the loss and every gradient: " + ", ".join(
+              f"{r} {ok}" for r, ok in same.items()), flush=True)
+    if not all(same.values()):
+        fail(f"parallel: gradients differ between remat policies: {same}")
+    return tree_unflatten(params, grads)["embed"]
+
+
+def phase_int8_allreduce(leaf, card):
+    """int8_allreduce in a world-size-1 NCCL group opened through a
+    FileStore: equal to int8_quantize dequantized, and to the same function
+    on the CPU (a gloo group of the same world), bit for bit; then timed."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import int8_allreduce, int8_quantize
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            cpu_group = dist.new_group([0], backend="gloo")
+            got = int8_allreduce(leaf)
+            q, scale = int8_quantize(leaf)
+            want = q.to(torch.int32).to(leaf.dtype) * (scale / 1)
+            host = int8_allreduce(leaf.cpu(), group=cpu_group)
+            torch.cuda.synchronize()
+            same_q = torch.equal(got, want)
+            same_cpu = torch.equal(got.cpu(), host)
+            ms = device_ms("int8_allreduce", lambda: int8_allreduce(leaf),
+                           iters=20)
+            q_ms = device_ms("int8_quantize", lambda: int8_quantize(leaf),
+                             iters=20)
+        finally:
+            dist.destroy_process_group()
+    # a bound for the quantize-sum-dequantize passes: x read twice (absmax,
+    # quantize), q written and read, the int32 sum written and read, y
+    # written
+    nbytes = leaf.numel() * (2 * 4 + 2 * 1 + 2 * 4 + 4)
+    print(f"[parallel int8] olmo-1b embed gradient {tuple(leaf.shape)} f32 "
+          f"through a world-size-1 NCCL group: equal to int8_quantize "
+          f"dequantized {same_q}, to the CPU function's result {same_cpu}; "
+          f"max |x| {float(leaf.abs().max()):.6g}; int8_allreduce {ms:.4f} "
+          f"ms, int8_quantize {q_ms:.4f} ms by CUDA events ({nbytes} bytes "
+          f"of unfused passes take {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+          f"at {HBM_BYTES_PER_S / 1e12} TB/s); {card}", flush=True)
+    if not (same_q and same_cpu):
+        fail("parallel: int8_allreduce differs from int8_quantize or from "
+             "the CPU function")
+
+
+def dryrun_expected_ok():
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.shapes import cells
+    return 2 * len(cells(ARCHS)[0])
+
+
+def phase_parallel(card):
+    """[parallel]: the mesh, the remat policies, the int8 all-reduce and
+    the dry-run on the card.  The dry-run (``python -m
+    repro_torch.launch.dryrun --all --both-meshes --out ""``: host work on
+    meta tensors) starts in a subprocess after the last timed step, so its
+    load is in none of the phase's times, and runs beside the serve
+    example; no line may be FAIL.  Returns {path: {kernel: launches}}."""
+    from repro_torch.launch.mesh import make_host_mesh
+    t = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    mesh = make_host_mesh()
+    print(f"[parallel] host mesh {mesh.shape} ({mesh.device_type})",
+          flush=True)
+    totals = phase_parallel_train(mesh)
+    leaf = phase_parallel_grads()
+    phase_int8_allreduce(leaf, card)
+    del leaf
+    torch.cuda.empty_cache()
+    t_dry = time.perf_counter()
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--both-meshes", "--out", ""], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        res = subprocess.run(
+            [sys.executable, "examples/torch_serve_paged.py"], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=300)
+        line = res.stdout.strip().splitlines()[-1] if res.stdout else ""
+        print(f"[parallel serve example] rc {res.returncode}: {line}",
+              flush=True)
+        if res.returncode or line != EXPECT_SERVE_EXAMPLE:
+            fail(f"examples/torch_serve_paged.py: rc {res.returncode}, "
+                 f"{line!r}: {res.stderr[-2000:]}")
+        out, err = dry.communicate(timeout=600)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    print(f"[parallel] dry-run wall {time.perf_counter() - t_dry:.3f} s",
+          flush=True)
+    lines = out.strip().splitlines()
+    for line in lines:
+        print(f"[parallel dryrun] {line}", flush=True)
+    ok = [x for x in lines if x.startswith("OK ")]
+    if dry.returncode or any(x.startswith("FAIL") for x in lines) \
+            or len(ok) != dryrun_expected_ok():
+        fail(f"dry-run: rc {dry.returncode}, {len(ok)} OK lines for "
+             f"{dryrun_expected_ok()}: {err[-3000:]}")
+    print(f"[parallel] phase wall {time.perf_counter() - t:.3f} s",
+          flush=True)
+    return {f"parallel olmo-1b train, remat=dots_with_no_batch_dims, "
+            f"{TRAIN_STEPS} steps": {"flash_attention": totals[0],
+                                     "flash_attention_bwd": totals[1]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -2948,6 +3143,14 @@ def main() -> int:
     names = ["paged_attention", "gather_page_units", "flash_attention",
              "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd"]
     paths = phase_model_zoo()
+    torch.cuda.empty_cache()
+
+    # The mesh, the remat policies, int8_allreduce, the dry-run and the
+    # serve example (the dots policy's path is counted inside).
+    card = sh("nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader").splitlines()[0]
+    paths.update(phase_parallel(card))
+    torch.cuda.empty_cache()
     for name, record in zip(names, records):
         record["paths"] = {path: counts[name]
                            for path, counts in paths.items()
@@ -2955,8 +3158,6 @@ def main() -> int:
 
     # Checkpoints: crash and resume through the train driver, then the
     # store's throughput at full width.
-    card = sh("nvidia-smi", "--query-gpu=name,power.limit",
-              "--format=csv,noheader").splitlines()[0]
     t = time.perf_counter()
     crash_resume("olmo-1b")
     crash_resume("mamba2-370m")

@@ -4,10 +4,12 @@ and ``csrc/flash_attention_bwd.cu`` (backward).
 Causal or full GQA attention over a whole sequence with a streaming
 softmax, so the (S, S) score matrix is never stored.  A CUDA tensor
 launches the hand-written kernels (or raises); a CPU tensor runs the plain
-versions in ``ref.py``.  Where a gradient is wanted, the call goes through
-a ``torch.autograd.Function``: its forward also keeps each row's
-log-sum-exp, and its backward is the backward kernel (or, for CPU tensors,
-``ref.flash_attention_bwd_ref``).
+versions in ``ref.py``; a meta tensor does no work: it returns empty
+outputs of the kernel's shapes and adds the kernel's least work
+(``cost.py``) to the active cost counter.  Where a gradient is wanted, the
+call goes through a ``torch.autograd.Function``: its forward also keeps
+each row's log-sum-exp, and its backward is the backward kernel (or, for
+CPU tensors, ``ref.flash_attention_bwd_ref``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import math
 
 import torch
 
-from . import _build, ref
+from . import _build, cost, ref
 
 # Kernel launches since the last reset; chip_smoke.py reads them.
 # ``launches`` counts forward kernels, ``bwd_launches`` backward calls (each
@@ -53,13 +55,15 @@ def _bwd_lib():
 
 def _check(tensors):
     """(B, S, H, Hkv, D) of q, k, v = tensors[:3]; raises unless every
-    tensor lies on one CUDA device, the shapes and dtype are the kernels',
-    and every tensor is contiguous and 16-byte aligned."""
+    tensor lies on one CUDA device (or all on meta), the shapes and dtype
+    are the kernels', and every tensor is contiguous and 16-byte
+    aligned."""
     q, k, v = tensors[:3]
     shapes = f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}"
-    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
+    if any(t.device != q.device for t in tensors) \
+            or q.device.type not in ("cuda", "meta"):
         raise ValueError("flash_attention: all tensors must be on one CUDA "
-                         "device, or all on the CPU")
+                         "device, or all on the CPU, or all on meta")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: unsupported shapes {shapes}")
     b, s, h, d = q.shape
@@ -89,6 +93,10 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if q.device.type == "meta":
+        cost.add("flash_attention", *cost.flash_attention_flops_bytes(
+            b, s, h, hkv, d, q.element_size(), causal, with_lse))
+        return out, lse
     if out.numel() == 0:
         return out, lse
     err = _lib().flash_attention(
@@ -108,7 +116,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
     """The gradients (dq, dk, dv) of ``flash_attention`` at (q, k, v), given
     its output ``out``, its log-sum-exp ``lse`` (B, H, S) f32 and the
     output's gradient ``dout`` (q's shape and dtype).  CPU tensors run
-    ``ref.flash_attention_bwd_ref``; CUDA tensors the backward kernel."""
+    ``ref.flash_attention_bwd_ref``; CUDA tensors the backward kernel; meta
+    tensors give empty gradients and add the kernel's least work to the
+    cost counter."""
     tensors = (q, k, v, out, lse, dout)
     if all(t.device.type == "cpu" for t in tensors):
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal)
@@ -121,6 +131,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
         raise ValueError(f"flash_attention_bwd: lse must be ({b}, {h}, {s}) "
                          f"float32, got {lse.dtype}{tuple(lse.shape)}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.device.type == "meta":
+        cost.add("flash_attention_bwd",
+                 *cost.attention_bwd_flops_bytes(q, k, causal))
+        return dq, dk, dv
     if q.numel() == 0:
         return dq, dk, dv
     lib, dtype = _bwd_lib(), _DTYPE_CODES[q.dtype]

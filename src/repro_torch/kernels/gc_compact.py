@@ -4,7 +4,8 @@ The host (``ops.compact_units``) turns the page-validity bitmap into one
 run-coalesced table of copy units, (src page, dst page, n pages) each; the
 kernel is a pure data mover that copies every unit of every plane in one
 launch.  A CUDA tensor launches the kernel (or raises); a CPU tensor runs
-the plain version in ``ref.py``.
+the plain version in ``ref.py``; a meta tensor copies nothing and adds the
+kernel's least work (``cost.py``) to the active cost counter.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import ctypes
 import numpy as np
 import torch
 
-from . import _build, ref
+from . import _build, cost, ref
 
 # Kernel launches since the last reset; chip_smoke.py reads it.
 launches = 0
@@ -37,7 +38,8 @@ def gather_page_units(pool, units, out):
     ``src .. src+n`` of every plane are copied to pages ``dst .. dst+n`` of
     ``out`` (..., P_out, page, D), which must not overlap ``pool``; the
     other pages of ``out`` are left as they are.  One launch.  Returns
-    ``out``."""
+    ``out``.  On meta tensors nothing is copied, and the kernel's least work
+    goes to the cost counter."""
     *planes, p_total, page, d = pool.shape
     units = np.asarray(units, np.int64).reshape(-1, 3)
     if (tuple(out.shape[:-3]) != tuple(planes)
@@ -58,9 +60,14 @@ def gather_page_units(pool, units, out):
         out[..., torch.from_numpy(dst_idx), :, :] = ref.gather_pages_ref(
             pool, torch.from_numpy(src_idx))
         return out
+    if pool.device.type == "meta" and out.device.type == "meta":
+        cost.add("gather_page_units", *cost.gather_flops_bytes(
+            int(n.sum()), len(units), int(np.prod(planes, dtype=np.int64)),
+            page, d, pool.element_size()))
+        return out
     if pool.device.type != "cuda" or out.device != pool.device:
         raise ValueError("gather_page_units: pool and out must be on one "
-                         "CUDA device, or both on the CPU")
+                         "CUDA device, or both on the CPU, or both on meta")
     if not pool.is_contiguous() or not out.is_contiguous():
         raise ValueError("gather_page_units: pool and out must be contiguous")
     page_bytes = page * d * pool.element_size()

@@ -1,8 +1,9 @@
 """Public entry points over the hand-written kernels.
 
 The tensors' device picks the path: a CUDA tensor launches the kernel (or
-raises), a CPU tensor runs the plain version in ``ref.py``.  There is no
-switch and no fall back.
+raises), a CPU tensor runs the plain version in ``ref.py``, a meta tensor
+does no work and adds the kernel's least work (``cost.py``) to the active
+cost counter.  There is no switch and no fall back.
 """
 
 from __future__ import annotations

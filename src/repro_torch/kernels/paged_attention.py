@@ -3,9 +3,11 @@
 One query token per sequence attends to a KV cache stored as fixed-size
 pages in a global pool, indirected through a page table.  A CUDA tensor
 launches the hand-written kernel (or raises); a CPU tensor runs the plain
-version in ``ref.py``.  The kernel splits each sequence's padded context
-across CTAs (flash-decoding) and merges the splits in the same launch;
-``plan_splits`` plans the split on the host, from shapes alone.
+version in ``ref.py``; a meta tensor does no work and adds the kernel's
+least work (``cost.py``) to the active cost counter.  The kernel splits
+each sequence's padded context across CTAs (flash-decoding) and merges the
+splits in the same launch; ``plan_splits`` plans the split on the host,
+from shapes alone.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import math
 
 import torch
 
-from . import _build, ref
+from . import _build, cost, ref
 
 # Kernel launches since the last reset; chip_smoke.py reads it.
 launches = 0
@@ -82,15 +84,18 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
     """q: (B, H, D); k/v_pool: (P, page, Hkv, D);
     page_table: (B, n_pages) int32 (−1 = unmapped); lengths: (B,).
     Returns (B, H, D) in q's dtype; rows with lengths == 0 are zeros.
+    Meta tensors return an empty output and add the kernel's least work,
+    every sequence taken at its whole page table, to the cost counter.
 
     On the card the call runs on the current stream, with arrival counters
     of that stream's own: calls on different streams may overlap."""
     tensors = (q, k_pool, v_pool, page_table, lengths)
     if all(t.device.type == "cpu" for t in tensors):
         return ref.paged_attention_ref(q, k_pool, v_pool, page_table, lengths)
-    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
+    if any(t.device != q.device for t in tensors) \
+            or q.device.type not in ("cuda", "meta"):
         raise ValueError("paged_attention: all tensors must be on one CUDA "
-                         "device, or all on the CPU")
+                         "device, or all on the CPU, or all on meta")
     b, h, d = q.shape
     p_total, page_size, hkv, d_kv = k_pool.shape
     if (v_pool.shape != k_pool.shape or d_kv != d or h % hkv
@@ -111,6 +116,12 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
                              "16-byte aligned")
     g = h // hkv
     n_pages = page_table.shape[1]
+    if q.device.type == "meta":
+        # no lengths to read: every sequence at its whole page table
+        cost.add("paged_attention", *cost.paged_attention_flops_bytes(
+            b, h, hkv, d, b * n_pages * page_size, n_pages,
+            q.element_size(), k_pool.element_size()))
+        return torch.empty_like(q)
     pages_per_split, splits = plan_splits(
         n_pages, page_size, b, hkv,
         torch.cuda.get_device_properties(q.device).multi_processor_count)

@@ -5,7 +5,10 @@ The Mamba-2 chunked scan, in place of the Pallas TPU kernel
 ``src/repro/kernels/ssd_scan.py::ssd_scan``: per chunk the intra-chunk term,
 the carried state's term and the state update.  A CUDA tensor launches the
 hand-written kernels (or raises); a CPU tensor runs the plain versions,
-``ref.ssd_chunked_ref`` and ``ref.ssd_chunked_bwd_ref``.  The forward is
+``ref.ssd_chunked_ref`` and ``ref.ssd_chunked_bwd_ref``; a meta tensor
+does no work: it returns empty outputs (and workspace) of the kernels'
+shapes and adds their least work (``cost.py``) to the active cost
+counter.  The forward is
 three launches, chunk-parallel except for the state passing: (1) each
 chunk's own (P, N) state, (2) the states carried into each chunk, walked in
 order elementwise, (3) each chunk's y from C.B^T (taken once for a group of
@@ -35,7 +38,7 @@ import ctypes
 
 import torch
 
-from . import _build, ref
+from . import _build, cost, ref
 
 # Kernel calls since the last reset; chip_smoke.py reads them.  ``launches``
 # counts forward calls (three launches each), ``bwd_launches`` backward
@@ -79,11 +82,13 @@ def _shapes_ok(p: int, n: int, chunk: int) -> bool:
 def _check(tensors, chunk: int, what: str = "ssd_scan"):
     """(B, S, H, P, N) of the scan's inputs (x, dt, a, bmat, cmat, then
     initial_state where given); raises unless every tensor lies on one CUDA
-    device and has the kernels' shape, dtype and layout."""
+    device (or all on meta) and has the kernels' shape, dtype and
+    layout."""
     x = tensors[0]
-    if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
+    if any(t.device != x.device for t in tensors) \
+            or x.device.type not in ("cuda", "meta"):
         raise ValueError(f"{what}: all tensors must be on one CUDA device, "
-                         "or all on the CPU")
+                         "or all on the CPU, or all on meta")
     if x.dim() != 4:
         raise ValueError(f"{what}: x must be (B, S, H, P), got "
                          f"{tuple(x.shape)}")
@@ -125,6 +130,10 @@ def _forward(x, dt, a, bmat, cmat, chunk: int, initial_state=None):
     nc = s // chunk
     workspace = torch.empty(b * h * nc * (p * n + 1), dtype=torch.float32,
                             device=x.device)
+    if x.device.type == "meta":
+        cost.add("ssd_scan", *cost.ssd_flops_bytes(
+            b, s, h, p, n, initial_state is not None))
+        return y, final, workspace
     err = _lib().ssd_scan(
         *(t.data_ptr() for t in (x, dt, a, bmat, cmat)),
         None if initial_state is None else initial_state.data_ptr(),
@@ -143,9 +152,10 @@ def ssd_scan_bwd(x, dt, a, bmat, cmat, chunk: int, initial_state, dy,
     """The gradients (dx, ddt, da, dB, dC, dinit) of ``ssd_scan`` at its
     inputs, given y's gradient ``dy`` (x's shape) and the final state's
     ``dfinal`` ((B, H, P, N), None for zeros); dinit is None when
-    ``initial_state`` is None.  CPU tensors run ``ref.ssd_chunked_bwd_ref``.
-    CUDA tensors run the backward kernel, which reads the states entering
-    each chunk from the forward kernel's ``workspace`` (as
+    ``initial_state`` is None.  CPU tensors run ``ref.ssd_chunked_bwd_ref``;
+    meta tensors give empty gradients and add the kernel's least work to the
+    cost counter.  CUDA tensors run the backward kernel, which reads the
+    states entering each chunk from the forward kernel's ``workspace`` (as
     ``_forward`` returns it for the same inputs)."""
     tensors = [x, dt, a, bmat, cmat]
     if initial_state is not None:
@@ -175,6 +185,11 @@ def ssd_scan_bwd(x, dt, a, bmat, cmat, chunk: int, initial_state, dy,
     ddt = torch.empty_like(dt)
     da = torch.empty_like(a)
     dinit = None if initial_state is None else torch.empty_like(initial_state)
+    if x.device.type == "meta":
+        cost.add("ssd_scan_bwd", *cost.ssd_bwd_flops_bytes(
+            b, s, h, p, n, chunk, initial_state is not None,
+            dfinal is not None))
+        return dx, ddt, da, dbm, dc, dinit
     lib = _bwd_lib()
     work = torch.empty(
         (lib.ssd_scan_bwd_workspace(b, s, h, p, n, chunk),),

@@ -1,1 +1,2 @@
-"""Launchers: the serve driver."""
+"""Launchers: the serve and train drivers, the meshes and shapes, and the
+dry-run."""

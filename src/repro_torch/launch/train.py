@@ -43,6 +43,7 @@ from ..models import get_model
 from ..train.data import synthetic_batch
 from ..train.optimizer import AdamWConfig, init_state
 from ..train.step import TrainConfig, build_train_step
+from .mesh import make_host_mesh
 
 
 def main(argv=None) -> int:
@@ -63,8 +64,10 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    mesh = make_host_mesh(device=device)
     tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
-    step_fn, _ = build_train_step(cfg, args.batch, args.seq, tc, device)
+    step_fn, _ = build_train_step(cfg, args.batch, args.seq, tc, device,
+                                  mesh=mesh)
     model = get_model(cfg)
     params = model.init(cfg, torch.Generator(device).manual_seed(0), device)
     opt = init_state(params, tc.adamw)

@@ -33,11 +33,12 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..parallel.ctx import constrain
 from .config import ModelConfig
 from .modules import (ParamSpec, _einsum, apply_rope, attention_specs,
-                      cross_entropy, dense_ffn, ffn_specs, gqa_attention,
-                      materialize, moe_ffn, norm, stack_specs, unembed,
-                      unstack_layers)
+                      axes_tree, cross_entropy, dense_ffn, ffn_specs,
+                      gqa_attention, materialize, moe_ffn, norm, stack_specs,
+                      unembed, unstack_layers)
 from .ssm import D_CONV, ssd_decode_step, ssd_layer, ssd_layer_specs
 
 Params = Dict[str, Any]
@@ -86,6 +87,10 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     return materialize(specs(cfg), generator, cfg.param_dtype, device)
 
 
+def logical_axes(cfg: ModelConfig) -> Params:
+    return axes_tree(specs(cfg))
+
+
 def _ffn(cfg: ModelConfig, ffn_kind: str, lp: Params, x):
     xn = norm(x, lp["ffn_norm"], cfg)
     if ffn_kind == "moe":
@@ -94,8 +99,7 @@ def _ffn(cfg: ModelConfig, ffn_kind: str, lp: Params, x):
 
 
 def _apply_position(cfg: ModelConfig, role, lp: Params, x, positions):
-    # The JAX package constrains x to the batch axes here, a no-op outside
-    # a mesh; the port runs on one card, so there is no call.
+    x = constrain(x, ("act_batch", None, None))
     mixer, ffn_kind = role
     if mixer == "attn":
         with record_function("attention"):

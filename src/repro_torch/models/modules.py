@@ -19,6 +19,7 @@ from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..parallel.ctx import constrain
 
 Params = Dict[str, Any]
 
@@ -51,6 +52,13 @@ def materialize(tree, generator: torch.Generator,
         return {k: build(node[k]) for k in sorted(node)}
 
     return build(tree)
+
+
+def axes_tree(tree):
+    """Parallel tree of logical-axes tuples."""
+    if isinstance(tree, ParamSpec):
+        return tree.axes
+    return {k: axes_tree(v) for k, v in tree.items()}
 
 
 def stack_specs(layer: Params, n: int) -> Params:
@@ -436,11 +444,11 @@ def moe_experts(p: Params, xt, plan, cfg):
     n, d = xt.shape
     e, cap = cfg.n_experts, plan["cap"]
     maps = _moe_maps(plan, e)
-    # The JAX package constrains the buffer to the "expert" mesh axis here
-    # (parallel.ctx.constrain), a no-op outside a mesh; the port runs on
-    # one card and has no parallel/ yet, so there is no call.
     with record_function("moe.dispatch"):
-        buf = _Dispatch.apply(xt, maps).view(e, cap, d)
+        # expert-sharded buffer: under expert parallelism the dispatch is
+        # the token all-to-all
+        buf = constrain(_Dispatch.apply(xt, maps).view(e, cap, d),
+                        ("expert", None, None))
     with record_function("moe.experts"):
         h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["wg"])) * \
             torch.einsum("ecd,edf->ecf", buf, p["wi"])

@@ -14,3 +14,7 @@ def get_model(cfg: ModelConfig) -> ModuleType:
     if cfg.family == "hybrid":
         return hybrid
     return transformer  # dense | moe | audio | vlm
+
+
+def param_bytes(cfg: ModelConfig, bytes_per_param: int = 2) -> int:
+    return cfg.param_count() * bytes_per_param

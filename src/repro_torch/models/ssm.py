@@ -24,9 +24,10 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..kernels import ops
 from ..kernels.ref import ssd_chunked_ref
+from ..parallel.ctx import constrain
 from .config import ModelConfig
-from .modules import (ParamSpec, cross_entropy, materialize, norm, rmsnorm,
-                      stack_specs, unembed, unstack_layers)
+from .modules import (ParamSpec, axes_tree, cross_entropy, materialize,
+                      norm, rmsnorm, stack_specs, unembed, unstack_layers)
 
 Params = Dict[str, Any]
 D_CONV = 4
@@ -83,6 +84,7 @@ def ssd_layer(lp: Params, x, cfg: ModelConfig,
               return_state: bool = False):
     """Full Mamba-2 block: in-proj → conv → SSD → gated out-proj."""
     cdt = cfg.compute_dtype
+    x = constrain(x, ("act_batch", None, None))
     xn = norm(x, lp["norm"], cfg)
     proj = xn @ lp["w_in"].to(cdt)
     z, xbc, dt = _split_proj(cfg, proj)
@@ -146,6 +148,10 @@ def specs(cfg: ModelConfig) -> Params:
 def init(cfg: ModelConfig, generator: torch.Generator,
          device="cuda") -> Params:
     return materialize(specs(cfg), generator, cfg.param_dtype, device)
+
+
+def logical_axes(cfg: ModelConfig) -> Params:
+    return axes_tree(specs(cfg))
 
 
 def forward(params: Params, batch: Dict, cfg: ModelConfig):

@@ -3,30 +3,37 @@ dense-cache decode.
 
 Layers are stacked (a leading ``n_layers`` axis on every layer parameter),
 as in the JAX package, and the forward pass walks them with a Python loop
-(``cfg.scan_layers`` has no meaning here).  With ``cfg.remat == "full"``
-and grad enabled, each layer runs under non-reentrant
-``torch.utils.checkpoint``, as the JAX forward wraps it in
-``jax.checkpoint``: the backward pass runs it again; under ``no_grad`` the
-loop is unchanged.  Covers the families dense, moe (the FFN is
-``modules.ffn``, a MoE FFN where ``n_experts > 1``), vlm (M-RoPE over
-(B, S, 3) positions) and audio (encoder-only: precomputed frame embeddings
-through a linear adapter, non-causal attention, no decode).
+(``cfg.scan_layers`` has no meaning here).  With grad enabled and
+``cfg.remat`` "full" or "dots_with_no_batch_dims", each layer runs under
+non-reentrant ``torch.utils.checkpoint``, as the JAX forward wraps it in
+``jax.checkpoint``: under "full" the backward pass runs the whole layer
+again; under "dots_with_no_batch_dims" it keeps what
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` keeps, the
+products with no batch dimension (``saves_dot_with_no_batch_dims``), and
+runs the rest again.  Under ``no_grad`` the loop is unchanged.  Covers the
+families dense, moe (the FFN is ``modules.ffn``, a MoE FFN where
+``n_experts > 1``), vlm (M-RoPE over (B, S, 3) positions) and audio
+(encoder-only: precomputed frame embeddings through a linear adapter,
+non-causal attention, no decode).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, Tuple
 
 import torch
 from torch.profiler import record_function
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..parallel.ctx import constrain
 from .config import ModelConfig
 from .modules import (ParamSpec, _einsum, apply_mrope, apply_rope,
-                      attention_specs, cross_entropy, ffn, ffn_specs,
-                      gqa_attention, materialize, norm, stack_specs,
-                      unembed, unstack_layers)
+                      attention_specs, axes_tree, cross_entropy, ffn,
+                      ffn_specs, gqa_attention, materialize, norm,
+                      stack_specs, unembed, unstack_layers)
 
 Params = Dict[str, Any]
 
@@ -58,16 +65,44 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     return materialize(specs(cfg), generator, cfg.param_dtype, device)
 
 
+def logical_axes(cfg: ModelConfig) -> Params:
+    return axes_tree(specs(cfg))
+
+
 def _layer(cfg: ModelConfig, x, lp: Params, positions, causal: bool):
     # Profiler ranges: a step's time by part, the remat recompute included
     # (it runs inside the backward pass, under these ranges again).
+    x = constrain(x, ("act_batch", None, None))
     with record_function("attention"):
         h, _ = gqa_attention(lp["attn"], norm(x, lp["attn_norm"], cfg),
                              positions, cfg, causal=causal)
-    x = x + h
+    x = constrain(x + h, ("act_batch", None, None))
     with record_function("ffn"):
         h = ffn(lp["ffn"], norm(x, lp["ffn_norm"], cfg), cfg)
-    return x + h
+    return constrain(x + h, ("act_batch", None, None))
+
+
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def saves_dot_with_no_batch_dims(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of "dots_with_no_batch_dims": save
+    the output of a product with no batch dimension, recompute every other
+    op.  ``torch.einsum`` takes a weight product ("bsd,dhk->bshk",
+    "bsd,dv->bsv") to ``aten.bmm`` with a batch of 1, and ``x @ w`` to
+    ``aten.mm``; the score and P·V products are ``aten.bmm`` over B·H.
+    K3's launch is a ctypes call that no dispatch mode sees, so under this
+    policy ``FlashAttention``'s forward runs again whole."""
+    if op in _MM or (op is torch.ops.aten.bmm.default
+                     and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_CONTEXT = {
+    "dots_with_no_batch_dims": partial(create_selective_checkpoint_contexts,
+                                       saves_dot_with_no_batch_dims),
+}
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict):
@@ -86,13 +121,15 @@ def forward(params: Params, batch: Dict, cfg: ModelConfig):
     in the compute dtype."""
     x = _embed_inputs(params, cfg, batch)
     positions = batch["positions"]
-    remat = torch.is_grad_enabled() and cfg.remat != "none"
-    if remat and cfg.remat != "full":
-        raise NotImplementedError(f"remat={cfg.remat!r} is not yet ported")
+    # As the reference: any other policy name runs each layer plain.
+    remat = torch.is_grad_enabled() and cfg.remat in ("full",
+                                                      *_REMAT_CONTEXT)
+    kw = ({"context_fn": _REMAT_CONTEXT[cfg.remat]}
+          if cfg.remat in _REMAT_CONTEXT else {})
     for lp in unstack_layers(params["layers"]):
         if remat:
             x = checkpoint(_layer, cfg, x, lp, positions, cfg.causal,
-                           use_reentrant=False)
+                           use_reentrant=False, **kw)
         else:
             x = _layer(cfg, x, lp, positions, cfg.causal)
     return unembed(params, x, cfg)

@@ -2,17 +2,24 @@
 
 Each builder returns the step function and its inputs as ``device="meta"``
 tensors (shapes and dtypes, no storage), as the JAX builders return
-abstract ``ShapeDtypeStruct``s.  There is no mesh and no sharding: the
-builder's ``device`` is where the step puts the batch, lengths and tokens
-it is given (numpy arrays or tensors); params, optimizer state and cache
-must already be there.  The train step takes its gradients with autograd
-in place of ``jax.value_and_grad``, accumulates microbatches with a Python
-loop in place of ``lax.scan``, and updates params and moments in place
-(``optimizer.apply_updates``).
+abstract ``ShapeDtypeStruct``s.  The builder's ``device`` is where the step
+puts the batch, lengths and tokens it is given (numpy arrays or tensors);
+params, optimizer state and cache must already be there (``"meta"`` runs
+the step on meta tensors: shapes only, as the dry-run does).  The train
+step takes its gradients with autograd in place of ``jax.value_and_grad``,
+accumulates microbatches with a Python loop in place of ``lax.scan``, and
+updates params and moments in place (``optimizer.apply_updates``).
+
+Given a ``mesh`` (a ``parallel.sharding.Mesh``), a step runs under
+``activation_rules(mesh, rules)``, as the JAX steps do, and its model's
+``constrain`` calls check their axes against it; nothing is split (the
+port has no SPMD partitioner).  The placements the JAX builders return as
+``in_shardings``/``out_shardings`` come from ``step_specs``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional
 
@@ -23,6 +30,9 @@ from ..device import resolve_device
 from ..models import get_model
 from ..models.config import ModelConfig
 from ..models.modules import ParamSpec
+from ..parallel.ctx import activation_rules
+from ..parallel.sharding import (Mesh, PartitionSpec as P, Rules,
+                                 default_rules, spec_for, tree_specs)
 from .optimizer import (AdamWConfig, apply_updates, init_state,
                         tree_leaves, tree_unflatten)
 
@@ -33,13 +43,32 @@ META = torch.device("meta")
 class TrainConfig:
     microbatches: int = 1
     adamw: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
-    grad_compression: bool = False   # int8 DP all-reduce: not yet ported
+    # int8 DP all-reduce (parallel.collectives.int8_allreduce).  Declared,
+    # and read by nothing, in both packages (ROADMAP F16): the step is the
+    # same with it on.
+    grad_compression: bool = False
 
 
 def _meta_params(tree, dtype):
     if isinstance(tree, ParamSpec):
         return torch.empty(tree.shape, dtype=dtype, device=META)
     return {k: _meta_params(v, dtype) for k, v in tree.items()}
+
+
+def _rules_scope(mesh: Optional[Mesh], rules: Optional[Rules]):
+    """The JAX steps' ``activation_rules`` scope, or none without a mesh."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return activation_rules(mesh, rules or default_rules(mesh))
+
+
+def batch_specs(cfg: ModelConfig, batch_abstract: Dict, rules: Rules,
+                mesh: Mesh):
+    out = {}
+    for k, v in batch_abstract.items():
+        axes = ["batch"] + [None] * (len(v.shape) - 1)
+        out[k] = spec_for(tuple(v.shape), tuple(axes), rules, mesh)
+    return out
 
 
 def make_batch_abstract(cfg: ModelConfig, global_batch: int, seq: int
@@ -59,7 +88,9 @@ def make_batch_abstract(cfg: ModelConfig, global_batch: int, seq: int
 
 
 def build_train_step(cfg: ModelConfig, global_batch: int, seq: int,
-                     tc: Optional[TrainConfig] = None, device="cuda"):
+                     tc: Optional[TrainConfig] = None, device="cuda",
+                     mesh: Optional[Mesh] = None,
+                     rules: Optional[Rules] = None):
     """Returns (train_step, (params, opt_state, batch) as meta tensors);
     ``train_step(params, opt_state, batch)`` returns (params, opt_state,
     {"loss", "grad_norm"}), both f32 scalars on the device, params and
@@ -68,10 +99,6 @@ def build_train_step(cfg: ModelConfig, global_batch: int, seq: int,
     gradients and the losses of the m parts are summed, then divided by m.
     ``grad_norm`` is sqrt(Σ g²) in f32 over every leaf."""
     tc = tc or TrainConfig()
-    if tc.grad_compression:
-        raise NotImplementedError(
-            "grad_compression (the int8 all-reduce of parallel/) is not yet "
-            "ported")
     dev = resolve_device(device)
     model = get_model(cfg)
     params_abs = _meta_params(model.specs(cfg), cfg.param_dtype)
@@ -88,6 +115,10 @@ def build_train_step(cfg: ModelConfig, global_batch: int, seq: int,
             loss, leaves, allow_unused=True, materialize_grads=True)
 
     def train_step(params, opt_state, batch):
+        with _rules_scope(mesh, rules):
+            return step(params, opt_state, batch)
+
+    def step(params, opt_state, batch):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         if m > 1:
             acc, loss = None, torch.zeros((), dtype=torch.float32, device=dev)
@@ -113,7 +144,8 @@ def build_train_step(cfg: ModelConfig, global_batch: int, seq: int,
 
 
 def build_prefill_step(cfg: ModelConfig, global_batch: int, seq: int,
-                       device="cuda"):
+                       device="cuda", mesh: Optional[Mesh] = None,
+                       rules: Optional[Rules] = None):
     """Returns (prefill_step, (params, batch) as meta tensors);
     ``prefill_step(params, batch)`` gives the last token's logits (B, V)."""
     dev = resolve_device(device)
@@ -124,7 +156,7 @@ def build_prefill_step(cfg: ModelConfig, global_batch: int, seq: int,
 
     def prefill_step(params, batch):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        with torch.no_grad():
+        with torch.no_grad(), _rules_scope(mesh, rules):
             logits = model.forward(params, batch, cfg)
         # serving returns last-token logits only (sampler input)
         return logits[:, -1, :]
@@ -132,8 +164,24 @@ def build_prefill_step(cfg: ModelConfig, global_batch: int, seq: int,
     return prefill_step, (params_abs, batch_abs)
 
 
+def cache_axes(cfg: ModelConfig):
+    if cfg.family == "ssm":
+        return {"conv": ("layers", "batch", "conv_k", "inner_conv"),
+                "ssm": ("layers", "batch", "ssm_heads", "head_dim",
+                        "ssm_state")}
+    if cfg.family == "hybrid":
+        return {"kv": ("layers", "kv2", "batch", "cache_seq", "kv_heads",
+                       "head_dim"),
+                "conv": ("layers", "layers2", "batch", "conv_k",
+                         "inner_conv"),
+                "ssm": ("layers", "layers2", "batch", "ssm_heads",
+                        "head_dim", "ssm_state")}
+    return ("layers", "kv2", "batch", "cache_seq", "kv_heads", "head_dim")
+
+
 def build_decode_step(cfg: ModelConfig, global_batch: int, max_seq: int,
-                      device="cuda"):
+                      device="cuda", mesh: Optional[Mesh] = None,
+                      rules: Optional[Rules] = None):
     """One-token serve_step against a max_seq KV cache (or, for the SSM
     family, the O(1) conv and SSM state; ``max_seq`` is then not used).
     Returns (serve_step, (params, cache, lengths, tokens) as meta tensors);
@@ -152,9 +200,49 @@ def build_decode_step(cfg: ModelConfig, global_batch: int, max_seq: int,
                              device=META)
 
     def serve_step(params, cache, lengths, tokens):
-        with torch.no_grad():
+        with torch.no_grad(), _rules_scope(mesh, rules):
             return model.decode_step(
                 params, cache, torch.as_tensor(lengths, device=dev),
                 torch.as_tensor(tokens, device=dev), cfg)
 
     return serve_step, (params_abs, cache_abs, lengths_abs, tokens_abs)
+
+
+def step_specs(cfg: ModelConfig, kind: str, mesh: Mesh, global_batch: int,
+               seq: int, tc: Optional[TrainConfig] = None,
+               rules: Optional[Rules] = None):
+    """(in_specs, out_specs): the placements of a step's inputs and outputs
+    on ``mesh``, as trees of ``PartitionSpec`` shaped like its arguments
+    and results: the ``.spec`` of each ``NamedSharding`` in the JAX
+    builders' ``in_shardings`` and ``out_shardings``.  ``kind`` is "train",
+    "prefill" or "decode" (``seq`` is then the cache's ``max_seq``)."""
+    rules = rules or default_rules(mesh)
+    model = get_model(cfg)
+    params_abs = _meta_params(model.specs(cfg), cfg.param_dtype)
+    p_spec = tree_specs(params_abs, model.logical_axes(cfg), rules, mesh)
+    if kind == "train":
+        batch_abs = make_batch_abstract(cfg, global_batch, seq)
+        opt_spec = {"mu": p_spec, "nu": p_spec, "count": P()}
+        return ((p_spec, opt_spec, batch_specs(cfg, batch_abs, rules, mesh)),
+                (p_spec, opt_spec, {"loss": P(), "grad_norm": P()}))
+    if kind == "prefill":
+        batch_abs = make_batch_abstract(cfg, global_batch, seq)
+        batch_abs.pop("targets")
+        return ((p_spec, batch_specs(cfg, batch_abs, rules, mesh)),
+                spec_for((global_batch, cfg.vocab), ("batch", "vocab"),
+                         rules, mesh))
+    if kind != "decode":
+        raise ValueError(f"unknown step kind {kind!r}")
+    _, (_, cache_abs, _, _) = build_decode_step(cfg, global_batch, seq,
+                                                device="meta")
+    ca = cache_axes(cfg)
+    if isinstance(cache_abs, dict):
+        c_spec = {k: spec_for(tuple(v.shape), ca[k], rules, mesh)
+                  for k, v in cache_abs.items()}
+    else:
+        c_spec = spec_for(tuple(cache_abs.shape), ca, rules, mesh)
+    l_spec = spec_for((global_batch,), ("batch",), rules, mesh)
+    t_spec = spec_for((global_batch, 1), ("batch", None), rules, mesh)
+    logits_spec = spec_for((global_batch, 1, cfg.vocab),
+                           ("batch", None, "vocab"), rules, mesh)
+    return (p_spec, c_spec, l_spec, t_spec), (logits_spec, c_spec)

@@ -1345,3 +1345,103 @@ def test_hybrid_train_step_at_full_width_repeats_bit_for_bit(cuda):
     assert torch.equal(m1["loss"], m2["loss"])
     assert torch.equal(m1["grad_norm"], m2["grad_norm"])
     assert np.isfinite(float(m1["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# The mesh and the parallel modules on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("remat,fwd_per_layer", [
+    ("dots_with_no_batch_dims", 2), ("full", 2), ("none", 1)])
+def test_remat_policy_train_step_on_the_host_mesh(cuda, remat,
+                                                  fwd_per_layer):
+    """olmo-1b at full width (seq cut to 512) through build_train_step on
+    make_host_mesh(): K3 runs again in the backward pass under both
+    checkpointing policies (no dispatch mode sees its launch), K3-bwd once
+    a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.train import (TrainConfig, build_train_step,
+                                   init_state, synthetic_batch)
+    cfg = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked",
+                              remat=remat)
+    mesh = make_host_mesh()
+    assert mesh.device_type == "cuda" and mesh.devices.size >= 1
+    params = get_model(cfg).init(cfg, torch.Generator(cuda).manual_seed(0),
+                                 cuda)
+    tc = TrainConfig()
+    step, _ = build_train_step(cfg, 1, 512, tc, cuda, mesh=mesh)
+    opt = init_state(params, tc.adamw)
+    before = fa.launches, fa.bwd_launches
+    _, _, m = step(params, opt, synthetic_batch(cfg, 0, 1, 512))
+    torch.cuda.synchronize()
+    assert (fa.launches - before[0], fa.bwd_launches - before[1]) == \
+        (fwd_per_layer * cfg.n_layers, cfg.n_layers)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"]))
+
+
+def test_remat_policies_give_the_same_gradient_bits(cuda):
+    """One f32 loss and gradient of olmo-1b at full width cut to 2 layers
+    (K3 and K3-bwd in f32) under each remat policy: the same bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import synthetic_batch
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    base = dataclasses.replace(get_config("olmo-1b"), n_layers=2,
+                               compute_dtype=torch.float32,
+                               attn_impl="chunked")
+    params = get_model(base).init(base, torch.Generator(cuda).manual_seed(0),
+                                  cuda)
+    batch = {k: torch.as_tensor(v, device=cuda)
+             for k, v in synthetic_batch(base, 0, 2, 256).items()}
+    runs = []
+    for remat in ["none", "full", "dots_with_no_batch_dims"]:
+        cfg = dataclasses.replace(base, remat=remat)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss = get_model(cfg).loss_fn(tree_unflatten(params, leaves), batch,
+                                      cfg)
+        runs.append((loss.detach(), torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True)))
+    (l0, g0), *rest = runs
+    for loss, grads in rest:
+        assert torch.equal(loss, l0)
+        assert all(torch.equal(a, b) for a, b in zip(grads, g0))
+
+
+def test_int8_allreduce_in_a_world_size_1_nccl_group(cuda, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.parallel import int8_allreduce, int8_quantize
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        x = torch.randn(2048, 8192, generator=torch.Generator(cuda)
+                        .manual_seed(3), device=cuda) * 1e-3
+        got = int8_allreduce(x)
+        q, scale = int8_quantize(x)
+        cpu_group = dist.new_group([0], backend="gloo")
+        host = int8_allreduce(x.cpu(), group=cpu_group)
+        torch.cuda.synchronize()
+        assert torch.equal(got, q.to(torch.int32).float() * (scale / 1))
+        assert torch.equal(got.cpu(), host)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_torch_serve_example_on_the_card(cuda):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "examples/torch_serve_paged.py"],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ,
+                                               PYTHONPATH=str(root / "src")))
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.splitlines()[-1] == (
+        "completed=16 decode_steps=34 compactions=7 compaction_dmas=248 "
+        "fragmentation=0.000")

@@ -183,28 +183,37 @@ def test_flash_attention_ref_lse(dtype, causal):
 
 
 def test_wrappers_refuse_tensors_off_cpu_and_cuda():
-    # Only a CPU tensor runs the plain version; anything else must reach
-    # the kernel or raise.
+    # Only CPU tensors run the plain version, and only meta tensors the
+    # meta branch (shapes, no work, no launch); tensors on more than one
+    # device must reach the kernel or raise.
     rng = np.random.default_rng(3)
     _, targs = _paged_inputs(rng, 2, 4, 2, 64, 16, 8, 4, torch.float32,
                              torch.float32)
     with pytest.raises(ValueError):
-        paged_attention(*(t.to("meta") for t in targs))
+        paged_attention(targs[0].to("meta"), *targs[1:])
+    assert paged_attention(*(t.to("meta") for t in targs)).is_meta
     pool = torch.zeros((2, 8, 4, 16), device="meta")
     with pytest.raises(ValueError):
         gather_page_blocks(pool, np.array([0, 1], np.int32), 2,
-                           torch.zeros_like(pool))
+                           torch.zeros((2, 8, 4, 16)))
+    assert gather_page_blocks(pool, np.array([0, 1], np.int32), 2,
+                              torch.zeros_like(pool)).is_meta
     q = torch.zeros((1, 8, 4, 16), device="meta")
+    k = torch.zeros((1, 8, 4, 16))
     with pytest.raises(ValueError):
-        flash_attention(q, q, q)
+        flash_attention(q, k, k)
     with pytest.raises(ValueError):
-        flash_attention(q.requires_grad_(), q, q)
+        flash_attention(q.clone().requires_grad_(), k, k)
     with pytest.raises(ValueError):
-        flash_attention_bwd(q, q, q, q, torch.zeros((1, 4, 8), device="meta"),
-                            q)
+        flash_attention_bwd(q, q, q, q, torch.zeros((1, 4, 8)), q)
+    assert flash_attention(q, q, q).is_meta
+    assert all(g.is_meta for g in flash_attention_bwd(
+        q, q, q, q, torch.zeros((1, 4, 8), device="meta"), q))
     _, targs = _ssd_inputs(0, 1, 16, 2, 4, 8)
     with pytest.raises(ValueError):
-        ssd_scan(*(t.to("meta") for t in targs), 8)
+        ssd_scan(targs[0].to("meta"), *targs[1:], 8)
+    assert all(t.is_meta for t in ssd_scan(*(t.to("meta") for t in targs),
+                                          8))
 
 
 @pytest.mark.parametrize("seed,n,block_pages,density", [

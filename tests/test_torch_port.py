@@ -18,7 +18,7 @@ from repro.configs import ARCHS as J_ARCHS
 from repro.configs import get_config as j_get_config
 from repro.models import get_model as j_get_model
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.launch import serve, train
+from repro_torch.launch import mesh, serve, train
 from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models.modules import ParamSpec, materialize
 from repro_torch.serving import PagedCacheConfig, PagedKVCache
@@ -121,6 +121,7 @@ def test_materialize_shape_dtype_and_scale():
 
 
 ENTRY_POINTS = {
+    "make_host_mesh": lambda: mesh.make_host_mesh(),
     "transformer.init": lambda: transformer.init(
         get_config("olmo-1b", smoke=True), torch.Generator()),
     "materialize": lambda: materialize(

@@ -2,7 +2,11 @@
 on the CPU.  The JAX side runs its kernel path (Pallas in interpret mode),
 which counts coalesced copies as the port always does."""
 
+import os
 import re
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -175,3 +179,33 @@ def _check_driver_against_jax(arch, capsys):
             f"compaction_dmas={cache.compaction_dmas} "
             f"alloc_failures={cache.alloc_failures}")
     assert line == want
+
+
+def test_torch_serve_example_prints_the_jax_example_line():
+    """examples/torch_serve_paged.py against examples/serve_paged.py, the
+    JAX example: the same counts line, but ``compaction_dmas``, which is
+    held to the JAX example run with its cache on the kernel path
+    (``use_pallas=True``, interpret mode), as the port always plans
+    coalesced copies (ROADMAP F4)."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), JAX_PLATFORMS="cpu")
+
+    def run(*argv):
+        res = subprocess.run([sys.executable, *argv], capture_output=True,
+                             text=True, env=env, timeout=300, cwd=root)
+        assert res.returncode == 0, res.stderr[-2000:]
+        return res.stdout.splitlines()
+
+    got = run("examples/torch_serve_paged.py", "--device", "cpu")
+    plain = run("examples/serve_paged.py")
+    kernel = run("-c", "import runpy, repro.serving as s\n"
+                 "cfg = s.PagedCacheConfig\n"
+                 "s.PagedCacheConfig = lambda *a, **k: cfg(*a, use_pallas=True,"
+                 " **k)\n"
+                 "runpy.run_path('examples/serve_paged.py', "
+                 "run_name='__main__')\n")
+    dmas = re.compile(r" compaction_dmas=\d+")
+    assert len(got) == len(plain) == len(kernel) == 1
+    assert dmas.sub("", got[0]) == dmas.sub("", plain[0])
+    assert got == kernel
+    assert got[0].startswith("completed=16 ")

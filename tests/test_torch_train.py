@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import AxisType
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_config as j_get_config
 from repro.models import get_model as j_get_model
@@ -319,21 +320,66 @@ def test_remat_full_gives_the_same_grads(arch, impl):
         np.testing.assert_allclose(p1[name], p0[name], rtol=1e-7, atol=1e-7)
 
 
-def test_remat_policy_not_ported_raises_only_under_grad():
-    """The transformer's "dots_with_no_batch_dims" policy (the reference
-    saves the products without batch dims) is not yet ported: the forward
-    runs, a gradient raises."""
-    _, tc = _cfgs("olmo-1b", "f32")
-    cfg = dataclasses.replace(tc, remat="dots_with_no_batch_dims")
-    model = get_model(cfg)
-    params = model.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    batch = {k: torch.from_numpy(v)
-             for k, v in j_data.synthetic_batch(cfg, 0, 1, 16).items()}
-    with torch.no_grad():          # the loop is unchanged: runs
-        assert model.forward(params, batch, cfg).shape == (1, 16, cfg.vocab)
-    params["unembed"].requires_grad_()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        model.loss_fn(params, batch, cfg)
+@pytest.mark.parametrize("arch,impl", [("olmo-1b", "chunked"),
+                                       ("granite-moe-3b-a800m", "chunked")])
+def test_remat_dots_with_no_batch_dims_grads_match_jax(arch, impl):
+    """The transformer's "dots_with_no_batch_dims" policy: loss and each
+    leaf's gradient against jax.value_and_grad under the same policy."""
+    _grads_against_jax(*_cfgs(arch, "f32", attn_impl=impl,
+                              remat="dots_with_no_batch_dims"))
+
+
+class _Products(TorchDispatchMode):
+    """Records the products with no batch dimension (aten.mm, aten.addmm,
+    and aten.bmm with a batch of 1) and their operands' shapes."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) \
+                or (func is torch.ops.aten.bmm.default
+                    and args[0].shape[0] == 1):
+            self.seen.append((str(func), tuple(args[0].shape)))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("impl", ["naive", "chunked"])
+def test_remat_dots_with_no_batch_dims_recomputes_no_weight_product(impl):
+    """Under "dots_with_no_batch_dims" the backward pass runs the products
+    of "none"'s backward and no product of the forward again; under "full"
+    it runs the layers' products again.  The loss and every gradient are
+    the same bits under all three policies (the policy moves memory, not
+    values)."""
+    runs = {}
+    for remat in ["none", "full", "dots_with_no_batch_dims"]:
+        _, cfg = _cfgs("olmo-1b", "f32", attn_impl=impl, remat=remat)
+        model = get_model(cfg)
+        params = model.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        leaves = [p.requires_grad_() for p in tree_leaves(params)]
+        batch = {k: torch.from_numpy(v)
+                 for k, v in j_data.synthetic_batch(cfg, 0, BATCH, SEQ)
+                 .items()}
+        fwd, bwd = _Products(), _Products()
+        with fwd:
+            loss = model.loss_fn(tree_unflatten(params, leaves), batch, cfg)
+        with bwd:
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        runs[remat] = (loss, grads, fwd.seen, bwd.seen)
+    loss, grads, fwd, bwd = runs["none"]
+    per_layer = (len(fwd) - 1) // 2          # the unembedding runs once
+    assert per_layer == 7                    # q, k, v, o, wi, wg, wo
+    assert sorted(runs["dots_with_no_batch_dims"][3]) == sorted(bwd)
+    # "full" runs each layer's products again up to the last one the
+    # backward needs a saved tensor from (non-reentrant checkpointing stops
+    # early): all but the FFN's down product
+    assert len(runs["full"][3]) == len(bwd) + 2 * (per_layer - 1)
+    for remat, (l2, g2, f2, _) in runs.items():
+        assert f2 == fwd, remat
+        assert torch.equal(l2, loss), remat
+        assert all(torch.equal(a, b) for a, b in zip(g2, grads)), remat
 
 
 def test_mamba2_remat_policy_other_than_full_runs_plain():
@@ -364,10 +410,37 @@ def test_train_step_inputs_match_jax(arch):
         _abstract(dict(enumerate(want)))
 
 
-def test_grad_compression_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_train_step(get_config("olmo-1b", smoke=True), 2, 8,
-                         TrainConfig(grad_compression=True), "cpu")
+def test_grad_compression_changes_no_bit_of_the_step():
+    """``grad_compression`` is declared and read by nothing, in both
+    packages (ROADMAP F16): three steps with it on give the bits of three
+    without it, as the JAX step does."""
+    jc, tc = _cfgs("olmo-1b", "f32")
+    batches = [j_data.synthetic_batch(tc, i, BATCH, SEQ) for i in range(3)]
+    jp0 = j_get_model(jc).init(jc, jax.random.PRNGKey(1))
+    runs, jruns = {}, {}
+    for on in (False, True):
+        cfg = TrainConfig(adamw=AdamWConfig(lr=LR), grad_compression=on)
+        step, _ = build_train_step(tc, BATCH, SEQ, cfg, "cpu")
+        params = params_from_numpy(jax.tree.map(np.asarray, jp0),
+                                   device="cpu")
+        opt = init_state(params, cfg.adamw)
+        for b in batches:
+            params, opt, m = step(params, opt, b)
+        runs[on] = (_flat(params), float(m["loss"]))
+        fn, *_ = j_step.build_train_step(
+            jc, _mesh(), BATCH, SEQ,
+            j_step.TrainConfig(adamw=j_opt.AdamWConfig(lr=LR),
+                               grad_compression=on))
+        jp, jo = jp0, j_opt.init_state(jp0, j_opt.AdamWConfig(lr=LR))
+        for b in batches:
+            jp, jo, jm = jax.jit(fn)(jp, jo, {k: jnp.asarray(v)
+                                              for k, v in b.items()})
+        jruns[on] = (_flat(jax.tree.map(np.asarray, jp)), float(jm["loss"]))
+    for runs_ in (runs, jruns):
+        (p0, l0), (p1, l1) = runs_[False], runs_[True]
+        assert l0 == l1
+        for k in p0:
+            assert p0[k].tobytes() == p1[k].tobytes(), k
 
 
 DRIVER = ["--device", "cpu", "--smoke", "--batch", "2", "--seq", "32"]
