@@ -112,7 +112,21 @@ Phases, in order; any failure exits non-zero:
    (``python -m repro_torch.launch.dryrun --all --both-meshes --out ""``,
    host work on meta tensors, in a subprocess started after the timed
    work) prints no FAIL.
-13. Checkpoints (``[checkpoint]``): crash and resume through the train
+13. The train step across processes (``[parallel dp]``): one process a
+   card (``torch.cuda.device_count()`` of them, spawned) in an NCCL group,
+   on ``make_host_mesh()``: olmo-1b at full width through the sharded
+   ``build_train_step`` (global batch 2 a card, seq 4096, remat "full":
+   the batch split by rows, params and AdamW moments as FSDP blocks), 4
+   steps, each step's time by CUDA events, each rank's peak memory, K3 32
+   and K3-bwd 16 launches a step by the counters and the profiler, and the
+   profiler's NCCL kernels and device-to-device copies.  With one card,
+   one sharded step from a state must give the one-process step's bits
+   from a clone of it; with more, an f32 step at 2 layers must give one
+   process's loss within the f32 spread, its grad norm within 1e-4 and,
+   gathered, its params within the f32 bounds.  Then the train driver under
+   torchrun at SMOKE size: a crash after step 5, the resume and an
+   uninterrupted run, with the same losses.
+14. Checkpoints (``[checkpoint]``): crash and resume through the train
    driver on the card for olmo-1b and mamba2-370m at SMOKE size (crash
    after step 5 of 8 with a checkpoint every 3 steps, resume, and an
    uninterrupted run): the resumed run prints ``resumed from step 5`` and
@@ -124,7 +138,7 @@ Phases, in order; any failure exits non-zero:
    down as the store fills (``tools/ckpt_throughput.py`` takes more).
 
 The last lines are a JSON object per kernel (with its launches on the
-phase 11 and 12 paths under ``paths``), the card's name and power limit, and
+phase 11, 12 and 13 paths under ``paths``), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU fallback: with
 no card the script exits non-zero before doing anything.
 """
@@ -3043,6 +3057,356 @@ def phase_parallel(card):
             f"{TRAIN_STEPS} steps": {"flash_attention": totals[0],
                                      "flash_attention_bwd": totals[1]}}
 
+# [parallel dp]: the train step across processes on the mesh's data axis
+DP_SEQ = 4096                  # olmo-1b, global batch 2 a card
+DP_CHECK = (2, 1024)           # the f32 check across cards: layers, seq
+NCCL_PARTS = (("AllGather", "all-gather"), ("ReduceScatter",
+                                            "reduce-scatter"),
+              ("AllReduce", "all-reduce"))
+
+
+def dp_same_bits(a, b):
+    """[(name, max |diff|)] of the leaves of two trees that differ."""
+    from repro_torch.checkpoint import named_leaves
+    return [(name, float((x.double() - y.double()).abs().max()))
+            for (name, x), (_, y) in zip(named_leaves(a), named_leaves(b))
+            if not torch.equal(x, y)]
+
+
+def dp_bits_check(cfg, mesh, batch):
+    """World 1 only: one sharded step from a state and the one-process
+    step from a clone of that state give the same bits in the loss, the
+    grad norm and every leaf of params, mu, nu and count."""
+    from repro_torch.parallel import runtime
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   build_train_step, init_state)
+    from repro_torch.train.optimizer import clone_tree
+    from repro_torch.train.step import step_specs
+    tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
+    b = len(batch["targets"])
+    sharded, _ = build_train_step(cfg, b, DP_SEQ, tc, mesh=mesh)
+    one, _ = build_train_step(cfg, b, DP_SEQ, tc)
+    (p_spec, _, _), _ = step_specs(cfg, "train", mesh, b, DP_SEQ, tc)
+    params = full_params(cfg)
+    twin = clone_tree(params)
+    params = runtime.shard_tree(params, p_spec, mesh)
+    state = [params, init_state(params, tc.adamw)]
+    p1, o1, m1 = sharded(*state, batch)
+    p2, o2, m2 = one(twin, init_state(twin, tc.adamw), batch)
+    torch.cuda.synchronize()
+    differ = dp_same_bits({"params": p1, "opt": o1, "metrics": m1},
+                          {"params": p2, "opt": o2, "metrics": m2})
+    print(f"[parallel dp] world 1: one sharded step from a state and the "
+          f"one-process step from a clone of it: loss {float(m1['loss']):.6f}"
+          f" / {float(m2['loss']):.6f}, grad_norm "
+          f"{float(m1['grad_norm']):.6f} / {float(m2['grad_norm']):.6f}; "
+          f"the same bits in the loss, the grad norm and every leaf of "
+          f"params, mu, nu and count: {not differ}"
+          + (f"; {len(differ)} differ, the first {differ[0]}" if differ
+             else ""), flush=True)
+    if differ:
+        fail(f"parallel dp: the world-1 sharded step differs from the "
+             f"one-process step in {[d[0] for d in differ]}")
+
+
+def dp_param_diffs(a, b):
+    """(max |a - b|, the share of elements where |a - b| > 1e-5) over the
+    leaves of two param trees."""
+    from repro_torch.checkpoint import named_leaves
+    worst, over, n = 0.0, 0, 0
+    for (_, x), (_, y) in zip(named_leaves(a), named_leaves(b)):
+        d = (x.double() - y.double()).abs()
+        worst = max(worst, float(d.max()))
+        over += int((d > 1e-5).sum())
+        n += d.numel()
+    return worst, over / n
+
+
+def dp_f32_check(mesh, world):
+    """World > 1 only: one f32 step of olmo-1b cut to DP_CHECK's layers at
+    global batch 2·world, sharded, against the one-process step on the
+    whole batch on rank 0.  The loss is held to twice the f32 spread the
+    same step shows between the whole batch and ``world`` microbatches
+    (the same sums in another order), and at least 1e-5 relative; the grad
+    norm (the gradients reduce-scattered and all-reduced by NCCL) to 1e-4
+    relative; the params after the step, gathered whole, to
+    tests/test_torch_train.py's f32 bounds for one step: 2·lr at the worst
+    element and 1e-5 at all but a 1e-3 share.  The same step's f32 spread
+    in the params, one process's whole batch against ``world``
+    microbatches, is printed beside them."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   build_train_step, init_state,
+                                   synthetic_batch)
+    from repro_torch.parallel import runtime
+    from repro_torch.train.step import step_specs
+    layers, seq = DP_CHECK
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=layers,
+                              compute_dtype=torch.float32,
+                              attn_impl="chunked", remat="full")
+    b = 2 * world
+    batch = synthetic_batch(cfg, 0, b, seq)
+    tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
+    step, _ = build_train_step(cfg, b, seq, tc, mesh=mesh)
+    (p_spec, _, _), _ = step_specs(cfg, "train", mesh, b, seq, tc)
+    params = runtime.shard_tree(full_params(cfg), p_spec, mesh)
+    params, _, m = step(params, init_state(params, tc.adamw), batch)
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
+    params = runtime.gather_tree(params, p_spec, mesh)
+    if dist.get_rank() == 0:
+        got, ps = [], []
+        for mb in (1, world):
+            tcm = TrainConfig(microbatches=mb, adamw=tc.adamw)
+            one, _ = build_train_step(cfg, b, seq, tcm)
+            p = full_params(cfg)
+            p, _, m1 = one(p, init_state(p, tc.adamw), batch)
+            got.append((float(m1["loss"]), float(m1["grad_norm"])))
+            ps.append(p)
+        spread = abs(got[0][0] - got[1][0])
+        bound = max(2 * spread, 1e-5 * abs(got[0][0]))
+        worst, share = dp_param_diffs(params, ps[0])
+        own = dp_param_diffs(ps[1], ps[0])
+        del ps
+        lr = tc.adamw.lr
+        print(f"[parallel dp] f32 check, olmo-1b {layers} layers, batch {b} "
+              f"seq {seq}: loss over {world} processes {loss:.7f}, one "
+              f"process {got[0][0]:.7f} (|diff| {abs(loss - got[0][0]):.3g};"
+              f" the f32 spread of one process's whole batch against "
+              f"{world} microbatches {spread:.3g}; bound {bound:.3g}); "
+              f"grad_norm {norm:.6f}, one process {got[0][1]:.6f} (|diff| "
+              f"{abs(norm - got[0][1]):.3g}; bound "
+              f"{1e-4 * abs(got[0][1]):.3g}); the params after the step, "
+              f"gathered: max |diff| {worst:.3g} (bound {2 * lr:.3g}), "
+              f"share over 1e-5 {share:.3g} (bound 0.001); one process's "
+              f"whole batch against {world} microbatches: max |diff| "
+              f"{own[0]:.3g}, share over 1e-5 {own[1]:.3g}", flush=True)
+        if not (abs(loss - got[0][0]) <= bound
+                and abs(norm - got[0][1]) <= 1e-4 * abs(got[0][1])
+                and worst <= 2 * lr and share <= 1e-3):
+            fail(f"parallel dp: the f32 step over {world} processes gives "
+                 f"loss {loss}, grad_norm {norm}, params max |diff| {worst} "
+                 f"share {share}; one process's loss and grad_norm "
+                 f"{got[0]}")
+    del params
+    dist.barrier()
+
+
+def dp_worker(rank, world, store_path):
+    """One process of the [parallel dp] group, on card ``rank``: olmo-1b
+    at full width through the sharded train step (rank 0 prints)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import runtime
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   build_train_step, init_state,
+                                   synthetic_batch)
+    from repro_torch.train.step import step_specs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runtime.init_group("cuda", dist.FileStore(store_path, world), rank,
+                       world)
+    try:
+        say = print if rank == 0 else (lambda *a, **k: None)
+        mesh = make_host_mesh()
+        say(f"[parallel dp] {world} process(es), NCCL, one card each: host "
+            f"mesh {mesh.shape}", flush=True)
+        cfg = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked",
+                                  remat="full")
+        b, n = 2 * world, cfg.n_layers
+        batches = [synthetic_batch(cfg, i, b, DP_SEQ)
+                   for i in range(TRAIN_STEPS + 1)]
+        if world == 1:
+            dp_bits_check(cfg, mesh, batches[0])
+        else:
+            dp_f32_check(mesh, world)
+        torch.cuda.empty_cache()
+        tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
+        step, _ = build_train_step(cfg, b, DP_SEQ, tc, mesh=mesh)
+        (p_spec, _, _), _ = step_specs(cfg, "train", mesh, b, DP_SEQ, tc)
+        params = runtime.shard_tree(full_params(cfg), p_spec, mesh)
+        opt = init_state(params, tc.adamw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # The path: counts set to 0 just before, read just after.
+        reset_counts()
+        times, want = [], (2 * n, n)
+        for i in range(TRAIN_STEPS):
+            before = (fa.launches, fa.bwd_launches)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            params, opt, m = step(params, opt, batches[i])
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+            got = (fa.launches - before[0], fa.bwd_launches - before[1])
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            say(f"[parallel dp] olmo-1b global batch {b} seq {DP_SEQ} step "
+                f"{i}: loss={loss:.6f} grad_norm={norm:.6f}; "
+                f"{times[-1]:.3f} ms by CUDA events; launches "
+                f"flash_attention={got[0]} flash_attention_bwd={got[1]}",
+                flush=True)
+            if got != want or not (np.isfinite(loss) and np.isfinite(norm)):
+                fail(f"parallel dp: step {i} launched {got} for {want}, "
+                     f"loss {loss}, grad_norm {norm}")
+        totals = (fa.launches, fa.bwd_launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        peaks = [None] * world
+        dist.all_gather_object(peaks, peak)
+        say(f"[parallel dp] {TRAIN_STEPS} steps, median of steps 2-"
+            f"{TRAIN_STEPS} {float(np.median(times[1:])):.3f} ms ("
+            + ", ".join(f"{t:.3f}" for t in times[1:]) + "); peak device "
+            "memory a rank " + ", ".join(f"{p:.2f}" for p in peaks)
+            + f" GiB; launches flash_attention={totals[0]} "
+            f"flash_attention_bwd={totals[1]}", flush=True)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(params, opt, batches[TRAIN_STEPS])
+            torch.cuda.synchronize()
+        by_name = device_time_by_name(prof)
+        k3 = sum(c for name, (_, c) in by_name.items()
+                 if "flash_attention" in name and "bwd" not in name)
+        dq = sum(c for name, (_, c) in by_name.items()
+                 if "flash_attention_bwd_dq" in name)
+        busy = sum(us for us, _ in by_name.values()) / 1e3
+        nccl, copies = {}, [0.0, 0]
+        for name, (us, c) in by_name.items():
+            if name.startswith("Memcpy DtoD"):
+                copies = [copies[0] + us / 1e3, copies[1] + c]
+            for key, part in NCCL_PARTS:
+                if "nccl" in name.lower() and key.lower() in name.lower():
+                    ms, k = nccl.get(part, (0.0, 0))
+                    nccl[part] = (ms + us / 1e3, k + c)
+        say(f"[parallel dp] the profiler's step: device busy {busy:.3f} ms; "
+            f"flash_attention kernels {k3}, flash_attention_bwd dq kernels "
+            f"{dq}; NCCL kernels " + (", ".join(
+                f"{part} {ms:.3f} ms in {k}"
+                for part, (ms, k) in sorted(nccl.items())) or "none")
+            + f"; device-to-device copies {copies[0]:.3f} ms in {copies[1]}"
+            + (" (a communicator of one rank copies rather than launch a "
+               "kernel)" if world == 1 and not nccl else ""), flush=True)
+        if (k3, dq) != want or (world > 1 and not nccl):
+            fail(f"parallel dp: the profiler found {k3} K3, {dq} K3-bwd and "
+                 f"NCCL {nccl} in a step, for {want} and NCCL kernels")
+        if rank == 0:
+            with open(os.path.join(os.path.dirname(store_path),
+                                   "totals.json"), "w") as f:
+                json.dump(totals, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_driver(world, argv):
+    """The train driver under torchrun, one process a card, started."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={world}", "-m", "repro_torch.launch.train",
+         *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def dp_finish(proc, timeout=300):
+    """(rc, rank 0's lines, stderr) of a dp_driver run; killed at
+    ``timeout`` seconds."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, out.strip().splitlines(), err
+
+
+def phase_parallel_dp(card):
+    """[parallel dp]: the train step across processes on the mesh's data
+    axis, one process a card in an NCCL group (spawned: the parent has
+    CUDA up), at full olmo-1b width, global batch 2 a card, seq 4096,
+    remat "full", TRAIN_STEPS steps: each step's time by CUDA events,
+    each rank's peak memory, the launches (K3 32, K3-bwd 16 a step) by the
+    counters and the profiler, the NCCL kernels' device time.  At world 1
+    a sharded step and the one-process step give the same bits; at
+    world > 1 an f32 step's loss, grad norm and params equal one
+    process's within f32 bounds (``dp_f32_check``).  Then the train driver under torchrun at SMOKE size: a crash,
+    the resume and an uninterrupted run.  Returns {path: {kernel:
+    launches}}."""
+    import multiprocessing
+    t = time.perf_counter()
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    cards = sh("nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader").splitlines()
+    print(f"[parallel dp] {world} card(s): " + "; ".join(cards), flush=True)
+    if world == 1:
+        print(f"[parallel dp] one card: the numbers across cards (an f32 "
+              f"step over several processes, NCCL between cards) wait for a "
+              f"machine with more; {card}", flush=True)
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="dp_") as tmp:
+        procs = [ctx.Process(target=dp_worker,
+                             args=(r, world, os.path.join(tmp, "store")))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=600)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            fail(f"parallel dp: the workers exited {codes}")
+        with open(os.path.join(tmp, "totals.json")) as f:
+            totals = json.load(f)
+        base = ["--smoke", "--device", "cuda", "--steps", "8", "--batch",
+                str(2 * world), "--seq", "32", "--ckpt-every", "3"]
+        crashed, whole = (os.path.join(tmp, d) for d in ("crashed", "whole"))
+        t_driver = time.perf_counter()
+        # the crash and the uninterrupted run side by side
+        uninterrupted = dp_driver(world, base + ["--ckpt-dir", whole])
+        rc, lines, err = dp_finish(dp_driver(
+            world, base + ["--ckpt-dir", crashed, "--fail-at", "5"]))
+        for line in lines:
+            print(f"[parallel dp driver --fail-at 5] {line}", flush=True)
+        codes = re.findall(r"exitcode\s*:\s*(-?\d+)", err)
+        print(f"[parallel dp driver --fail-at 5] torchrun rc {rc}, the "
+              f"processes' exit codes {codes}", flush=True)
+        if "42" not in codes or not set(codes) <= {"42", "-15"} \
+                or sorted(step_losses(lines)) != list(range(6)):
+            fail(f"parallel dp: the crashed run: rc {rc}, {lines}, "
+                 f"{err[-2000:]}")
+        rc, resumed, err = dp_finish(dp_driver(
+            world, base + ["--ckpt-dir", crashed, "--resume"]))
+        rc2, full, err2 = dp_finish(uninterrupted)
+        for label, out in (("--resume", resumed), ("uninterrupted", full)):
+            for line in out:
+                print(f"[parallel dp driver {label}] {line}", flush=True)
+        want = step_losses(full)
+        got = step_losses(lines) | step_losses(resumed)
+        if rc or rc2 or not resumed or resumed[0] != "resumed from step 5" \
+                or sorted(want) != list(range(8)) or got != want:
+            fail(f"parallel dp: resume rc {rc}, uninterrupted rc {rc2}: "
+                 f"{got} against {want}: {err[-2000:]} {err2[-2000:]}")
+    print(f"[parallel dp] the driver under torchrun ({world} process(es)): "
+          f"crashed after step 5, resumed from step 5, the losses of steps "
+          f"0-7 equal to the uninterrupted run's; wall "
+          f"{time.perf_counter() - t_driver:.3f} s", flush=True)
+    print(f"[parallel dp] phase wall {time.perf_counter() - t:.3f} s",
+          flush=True)
+    return {f"parallel dp olmo-1b train, {world} process(es), global batch "
+            f"{2 * world}, {TRAIN_STEPS} steps": {
+                "flash_attention": totals[0],
+                "flash_attention_bwd": totals[1]}}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3151,6 +3515,10 @@ def main() -> int:
               "--format=csv,noheader").splitlines()[0]
     paths.update(phase_parallel(card))
     torch.cuda.empty_cache()
+
+    # The train step across processes (its counts are set and read in
+    # the processes it starts).
+    paths.update(phase_parallel_dp(card))
     for name, record in zip(names, records):
         record["paths"] = {path: counts[name]
                            for path, counts in paths.items()

@@ -19,6 +19,12 @@ engine deletes the WAL files it replays), so a directory survives any
 number of restarts; the JAX store loses the checkpoints that were still
 in the WAL at its first recovery when it is recovered a second time.
 
+On a mesh that runs (``parallel.runtime``), ``save_sharded`` and
+``restore_sharded`` take trees of this process's blocks: the store holds
+whole tensors, in the same directory format, so a checkpoint saved by n
+processes restores on any other number, and in the one-process store.
+On a mesh without a group they are ``save`` and ``restore(like=...)``.
+
 A tree is a nested dict of tensors.  Its leaves are named by their keys,
 in sorted order (the order ``jax.tree_util`` visits a dict), joined with
 ``/``: ``params/embed``, ``opt/mu/...``, ``opt/count``.  Numpy has no
@@ -35,11 +41,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import msgpack
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import Store
 from ..core.db import KVStore
 from ..core.mvcc import Snapshot
 from ..core.options import preset
+from ..parallel import runtime
+from ..parallel.sharding import Mesh, tree_map
 from ..store.device import FSBlockDevice
 
 CHUNK = 1 << 20          # 1 MiB shard chunks
@@ -207,3 +216,63 @@ class CheckpointStore:
 
     def stats(self) -> Dict:
         return self.db.stats()
+
+
+def save_sharded(store: Optional[CheckpointStore], step: int, tree: Any,
+                 spec_tree: Any, mesh: Mesh,
+                 extra: Optional[Dict] = None) -> None:
+    """``CheckpointStore.save`` of a tree of blocks placed by ``spec_tree``
+    on ``mesh``.  Every process takes part in gathering each whole tensor;
+    the process of rank 0, the only one that holds the store (``store`` is
+    None on the others), writes them in one ``save``, and every process
+    waits at a barrier until it has.  On a mesh without a group (one
+    process, whole tensors) it is ``store.save``."""
+    if mesh.group is None:
+        store.save(step, tree, extra)
+        return
+    rank0 = runtime.rank(mesh) == 0
+
+    def whole(x, spec):
+        x = runtime.gather_tree(x, spec, mesh)
+        return x.cpu() if rank0 else None
+    full = tree_map(whole, tree, spec_tree)
+    if rank0:
+        store.save(step, full, extra)
+    del full
+    runtime.barrier(mesh)
+
+
+def restore_sharded(store: Optional[CheckpointStore], like: Any,
+                    spec_tree: Any, mesh: Mesh):
+    """``CheckpointStore.restore(like=...)`` of the latest step, with
+    ``like`` a tree of this process's blocks placed by ``spec_tree`` on
+    ``mesh``.  The process of rank 0 (the only one that holds ``store``)
+    reads the whole tensors and sends each to the others; each copies its
+    block into ``like``'s tensor.  Returns (step, like), or (None, None) on
+    every process when nothing is stored.  On a mesh without a group it is
+    ``store.restore(like=like)``."""
+    if mesh.group is None:
+        return store.restore(like=like)
+    rank0 = runtime.rank(mesh) == 0
+    step, whole = None, None
+    if rank0:
+        blank = tree_map(lambda x, spec: torch.empty(
+            runtime.full_shape(tuple(x.shape), spec, mesh), dtype=x.dtype),
+            like, spec_tree)
+        step, whole = store.restore(like=blank)
+    sent = [step]
+    dist.broadcast_object_list(sent, src=0, group=mesh.group)
+    if sent[0] is None:
+        return None, None
+    sources = dict(named_leaves(whole)) if rank0 else {}
+    with torch.no_grad():
+        for (name, leaf), (_, spec) in zip(named_leaves(like),
+                                           named_leaves(spec_tree)):
+            if rank0:
+                buf = sources.pop(name).to(leaf.device)
+            else:
+                buf = leaf.new_empty(runtime.full_shape(tuple(leaf.shape),
+                                                        spec, mesh))
+            dist.broadcast(buf, src=0, group=mesh.group)
+            leaf.copy_(runtime.local_block(buf, spec, mesh))
+    return sent[0], like

@@ -1,14 +1,15 @@
-"""Mesh construction: the production shapes, and the local devices.
+"""Mesh construction: the production shapes, and the host's processes.
 
 Each mesh is a ``parallel.sharding.Mesh`` descriptor (axis names and
 sizes, and the type of device): building one touches no device state,
 and the production meshes (256 and 512 devices) exist only on paper, for
-the dry-run.
+the dry-run.  The host mesh runs: it carries the default process group,
+one process a device (``parallel.runtime``).
 """
 
 from __future__ import annotations
 
-import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..parallel.sharding import Mesh
@@ -21,10 +22,15 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 
 def make_host_mesh(model: int = 1, device="cuda") -> Mesh:
-    """A (data, model) mesh over the local devices: every visible card, or
-    one CPU device when ``device`` is the CPU."""
+    """A (data, model) mesh over the processes of the default process
+    group, one device each, which carries the group; with no group, the
+    one device of this process, (1, 1), which plans and does not run
+    across processes.  The JAX package's spans the local devices of one
+    process; here a process drives one device, so a host of n cards runs
+    n processes (torchrun) and its mesh is (n / model, model)."""
     dev = resolve_device(device)
-    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    group = dist.group.WORLD if dist.is_initialized() else None
+    n = dist.get_world_size() if group is not None else 1
     if n % model:
         raise ValueError(f"{n} devices do not split into model={model}")
-    return Mesh(("data", "model"), (n // model, model), dev.type)
+    return Mesh(("data", "model"), (n // model, model), dev.type, group)

@@ -14,12 +14,14 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..kernels import ops
-from ..parallel.ctx import constrain
+from ..parallel import runtime
+from ..parallel.ctx import batch_group, constrain
 
 Params = Dict[str, Any]
 
@@ -88,15 +90,23 @@ def unembed(params: Params, x, cfg):
                         params["unembed"].to(cfg.compute_dtype))
 
 
-def cross_entropy(logits, targets):
-    """Mean next-token loss in f32 over targets >= 0."""
+def cross_entropy_terms(logits, targets):
+    """(the sum of the next-token losses over targets >= 0, their count),
+    both f32 scalars: a masked mean over a batch split across processes
+    divides the sum of the sums by the sum of the counts."""
     logits = logits.float()
     targets = targets.long()
     logz = torch.logsumexp(logits, dim=-1)
     # masked targets (< 0) pick any column: their term is multiplied by 0
     gold = logits.gather(-1, targets.clamp(min=0)[..., None]).squeeze(-1)
     mask = (targets >= 0).float()
-    return ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits, targets):
+    """Mean next-token loss in f32 over targets >= 0."""
+    total, count = cross_entropy_terms(logits, targets)
+    return total / count.clamp(min=1.0)
 
 
 # --------------------------------------------------------------------------
@@ -464,13 +474,28 @@ def moe_ffn(p: Params, x, cfg):
     (E, cap, D) buffer (overflow dropped), processed with per-expert
     einsums and combined with the router's gates (``moe_experts``).  The
     profiler sees its parts as ``moe.route``, ``moe.dispatch``,
-    ``moe.experts`` and ``moe.combine``."""
+    ``moe.experts`` and ``moe.combine``.
+
+    Routing is over the whole batch: the capacity counts every token, and
+    a pair's rank within its expert counts the pairs of every row before
+    it, as under the JAX package's batch sharding.  So where the running
+    step has split its batch over processes (``parallel.ctx.batch_group``),
+    the tokens of every process are gathered first (differentiably, in rank
+    order, which is the batch's row order), all of them are routed and run
+    through the experts, and this process keeps its own rows.  Every
+    process then does the whole batch's expert work: correct, not fast
+    (ROADMAP: an expert-parallel all-to-all)."""
     b, s, d = x.shape
     p = {k: w.to(cfg.compute_dtype) for k, w in p.items()}
     xt = x.reshape(b * s, d).to(cfg.compute_dtype)
+    group = batch_group()
+    if group is not None:
+        xt = runtime.gather_rows(xt, group)
     with record_function("moe.route"):
         plan = moe_route((xt @ p["router"]).float(), cfg)
     y = moe_experts(p, xt, plan, cfg)
+    if group is not None:
+        y = y[dist.get_rank(group) * b * s:][:b * s]
     return y.reshape(b, s, d).to(x.dtype)
 
 

@@ -15,10 +15,12 @@ Default parallelism:
 ``spec_for`` reads only a mesh's axis names and sizes, so the mesh here is
 ``Mesh``, a frozen descriptor of its own, not a ``torch.distributed``
 ``DeviceMesh``: a ``DeviceMesh`` needs a process group of the mesh's size,
-which one card has only at size 1 and the 256- and 512-device dry-run never
-has.  A spec is ``PartitionSpec``, a tuple of mesh-axis entries (an axis
-name, a tuple of names, or None) with trailing Nones trimmed, as
-``jax.sharding.PartitionSpec`` holds them.
+which the 256- and 512-device dry-run never has.  A mesh that carries a
+process group (``launch.mesh.make_host_mesh`` in a group) is one that runs:
+its member of rank r sits at coordinate ``mesh_coords(mesh, r)``, and holds
+``local_slice`` of each tensor.  A spec is ``PartitionSpec``, a tuple of
+mesh-axis entries (an axis name, a tuple of names, or None) with trailing
+Nones trimmed, as ``jax.sharding.PartitionSpec`` holds them.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import types
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 Rules = Dict[str, Union[str, Tuple[str, ...], None]]
 
@@ -35,11 +37,15 @@ Rules = Dict[str, Union[str, Tuple[str, ...], None]]
 class Mesh:
     """A device mesh as ``spec_for`` sees it: axis names and sizes, and the
     type of device its members are (``"cuda"``, ``"cpu"``, or ``"meta"``
-    for a mesh that exists only on paper, as the dry-run's)."""
+    for a mesh that exists only on paper, as the dry-run's), and the
+    process group that runs it, if any."""
 
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
     device_type: str = "meta"
+    # the torch.distributed group of the mesh's processes, one a device, in
+    # the order of their coordinates; None for a mesh that only plans
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
@@ -168,6 +174,36 @@ def shard_shape(shape: Tuple[int, ...], spec: PartitionSpec,
             raise ValueError(f"dimension {i} of {tuple(shape)} does not "
                              f"split over {entry} ({n})")
         out[i] //= n
+    return tuple(out)
+
+
+def mesh_coords(mesh: Mesh, index: int) -> Dict[str, int]:
+    """The coordinate of the mesh's device ``index`` (a process's rank in
+    the mesh's group), row-major over the axes: ``jax.make_mesh((n, 1))``
+    puts device i at (i, 0)."""
+    if not 0 <= index < mesh.size:
+        raise ValueError(f"device {index} is not on a mesh of {mesh.size}")
+    coords = {}
+    for name, size in reversed(tuple(zip(mesh.axis_names, mesh.axis_sizes))):
+        index, coords[name] = divmod(index, size)
+    return {name: coords[name] for name in mesh.axis_names}
+
+
+def local_slice(shape: Tuple[int, ...], spec: PartitionSpec, mesh: Mesh,
+                coords: Dict[str, int]) -> Tuple[slice, ...]:
+    """The index block of a tensor of ``shape`` placed by ``spec`` that the
+    device at ``coords`` holds: along a dimension split over axes (a, b, ...)
+    the blocks are contiguous and numbered row-major over those axes'
+    coordinates, as ``NamedSharding`` numbers them.  Its shape is
+    ``shard_shape(shape, spec, mesh)``."""
+    block = shard_shape(shape, spec, mesh)
+    out = [slice(None)] * len(shape)
+    for i, entry in enumerate(spec):
+        at = 0
+        for a in spec_axes(entry):
+            at = at * mesh.shape[a] + coords[a]
+        if spec_axes(entry):
+            out[i] = slice(at * block[i], (at + 1) * block[i])
     return tuple(out)
 
 

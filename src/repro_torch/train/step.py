@@ -12,9 +12,14 @@ updates params and moments in place (``optimizer.apply_updates``).
 
 Given a ``mesh`` (a ``parallel.sharding.Mesh``), a step runs under
 ``activation_rules(mesh, rules)``, as the JAX steps do, and its model's
-``constrain`` calls check their axes against it; nothing is split (the
-port has no SPMD partitioner).  The placements the JAX builders return as
-``in_shardings``/``out_shardings`` come from ``step_specs``.
+``constrain`` calls check their axes against it.  The placements the JAX
+builders return as ``in_shardings``/``out_shardings`` come from
+``step_specs``.  A mesh that only plans splits nothing.  On a mesh that
+runs (one that carries a process group: ``make_host_mesh`` in a group),
+the train step executes the ``data`` axis as the JAX step under
+``jax.jit(in_shardings=...)`` does: the batch split by rows, params and
+AdamW moments held as FSDP blocks (``_sharded_train_step``).  Prefill and
+decode do not run across processes yet.
 """
 
 from __future__ import annotations
@@ -29,10 +34,12 @@ from torch.profiler import record_function
 from ..device import resolve_device
 from ..models import get_model
 from ..models.config import ModelConfig
-from ..models.modules import ParamSpec
+from ..models.modules import ParamSpec, cross_entropy_terms
+from ..parallel import runtime
 from ..parallel.ctx import activation_rules
 from ..parallel.sharding import (Mesh, PartitionSpec as P, Rules,
-                                 default_rules, spec_for, tree_specs)
+                                 default_rules, spec_for, tree_map,
+                                 tree_specs)
 from .optimizer import (AdamWConfig, apply_updates, init_state,
                         tree_leaves, tree_unflatten)
 
@@ -60,6 +67,14 @@ def _rules_scope(mesh: Optional[Mesh], rules: Optional[Rules]):
     if mesh is None:
         return contextlib.nullcontext()
     return activation_rules(mesh, rules or default_rules(mesh))
+
+
+def _plan_only(mesh: Optional[Mesh], step: str) -> None:
+    """Prefill and decode take a mesh that plans; one that runs raises."""
+    if mesh is not None and mesh.group is not None:
+        runtime.check_executable(mesh)
+        raise NotImplementedError(f"the {step} step does not run across "
+                                  "processes yet (ROADMAP item 16)")
 
 
 def batch_specs(cfg: ModelConfig, batch_abstract: Dict, rules: Rules,
@@ -97,13 +112,18 @@ def build_train_step(cfg: ModelConfig, global_batch: int, seq: int,
     moments updated in place.  With ``tc.microbatches`` = m > 1 the batch is
     split as the JAX step splits it (reshaped to (m, B/m, ...)), the f32
     gradients and the losses of the m parts are summed, then divided by m.
-    ``grad_norm`` is sqrt(Σ g²) in f32 over every leaf."""
+    ``grad_norm`` is sqrt(Σ g²) in f32 over every leaf.  On a mesh that
+    runs, see ``_sharded_train_step``."""
     tc = tc or TrainConfig()
     dev = resolve_device(device)
     model = get_model(cfg)
     params_abs = _meta_params(model.specs(cfg), cfg.param_dtype)
     opt_abs = init_state(params_abs, tc.adamw)
     batch_abs = make_batch_abstract(cfg, global_batch, seq)
+    abstract = (params_abs, opt_abs, batch_abs)
+    if mesh is not None and mesh.group is not None:
+        return _sharded_train_step(cfg, global_batch, seq, tc, dev, mesh,
+                                   rules or default_rules(mesh)), abstract
     m = tc.microbatches
 
     def value_and_grad(params, batch):
@@ -114,33 +134,139 @@ def build_train_step(cfg: ModelConfig, global_batch: int, seq: int,
         return loss.detach(), torch.autograd.grad(
             loss, leaves, allow_unused=True, materialize_grads=True)
 
+    def norm(grads):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in grads))
+
     def train_step(params, opt_state, batch):
         with _rules_scope(mesh, rules):
-            return step(params, opt_state, batch)
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in batch.items()}
 
-    def step(params, opt_state, batch):
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        if m > 1:
-            acc, loss = None, torch.zeros((), dtype=torch.float32, device=dev)
-            for i in range(m):
-                part = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
+            def part(i):
+                if m == 1:
+                    return batch
+                return {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
                         for k, v in batch.items()}
-                part_loss, g = value_and_grad(params, part)
-                g = [x.float() for x in g]
-                acc = g if acc is None else [a.add_(x) for a, x in zip(acc, g)]
-                loss = loss + part_loss
-            grads = [a / m for a in acc]
-            loss = loss / m
-        else:
-            loss, grads = value_and_grad(params, batch)
-        grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                   for g in grads))
-        with record_function("adamw"):
-            params, opt_state = apply_updates(
-                params, tree_unflatten(params, grads), opt_state, tc.adamw)
-        return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
+            loss, grads = _accumulate(lambda i: value_and_grad(params,
+                                                               part(i)),
+                                      m, dev)
+            return _update(params, opt_state, loss, grads, m, norm, tc.adamw)
 
-    return train_step, (params_abs, opt_abs, batch_abs)
+    return train_step, abstract
+
+
+def _accumulate(value_and_grad, m: int, dev: torch.device):
+    """(loss, grads) over m microbatches: ``value_and_grad(i)`` gives
+    microbatch i's (loss, gradients).  With m > 1 the losses are summed and
+    divided by m, the gradients cast to f32 and summed (not yet divided:
+    across processes they are reduced first)."""
+    if m == 1:
+        return value_and_grad(0)
+    acc, loss = None, torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(m):
+        part_loss, g = value_and_grad(i)
+        g = [x.float() for x in g]
+        acc = g if acc is None else [a.add_(x) for a, x in zip(acc, g)]
+        loss = loss + part_loss
+    return loss / m, acc
+
+
+def _update(params, opt_state, loss, grads, m: int, norm, adamw):
+    """The step's tail: the summed gradients divided by m, their norm by
+    ``norm``, and AdamW on ``params`` in place."""
+    if m > 1:
+        grads = [a / m for a in grads]
+    grad_norm = norm(grads)
+    with record_function("adamw"):
+        params, opt_state = apply_updates(
+            params, tree_unflatten(params, grads), opt_state, adamw)
+    return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
+
+
+def _sharded_train_step(cfg: ModelConfig, global_batch: int, seq: int,
+                        tc: TrainConfig, dev: torch.device, mesh: Mesh,
+                        rules: Rules):
+    """The train step on a mesh that runs its ``data`` axis, one process a
+    device (``parallel.runtime``), with the numerics of the JAX step under
+    ``jax.jit(in_shardings=..., out_shardings=...)``.
+
+    ``params`` and ``opt_state``'s ``mu`` and ``nu`` are this process's
+    blocks, laid out by ``step_specs(cfg, "train", ...)`` (each of shape
+    ``shard_shape``); ``count`` is whole.  ``batch`` is the whole global
+    batch; each process takes its rows.  Where the global batch does not
+    divide over the processes, ``spec_for`` replicates it, as JAX does,
+    and every process computes the whole batch.
+
+    * Microbatch i is rows [i·B/m, (i+1)·B/m) of the global batch, as in
+      the JAX step, and this process takes its share of it: rows i·B/m +
+      r·B/(m·n) onwards, B/(m·n) of them.  The MoE's capacity is that of
+      the whole microbatch (``models/modules.py``, ``moe_ffn``).
+    * The params are gathered whole for the step (transient).
+    * The loss of a microbatch is its global masked mean, Σ sum_r / Σ
+      count_r: each process backpropagates sum_r / Σ count_r, so the
+      gradients summed over the processes are the global gradient.
+    * The gradients are summed into this process's blocks
+      (``reduce_tree``), divided by m, and AdamW updates the blocks in
+      place (``apply_updates``: elementwise).
+    * ``loss`` and ``grad_norm`` come out whole, equal on every process;
+      ``grad_norm`` counts a replicated leaf once (``global_norm``).
+
+    At one process each collective is a copy, and the step gives the
+    bits of the one-process step.  ``tc.grad_compression`` is read by
+    nothing, as in the JAX step (ROADMAP F16)."""
+    runtime.check_executable(mesh)
+    model = get_model(cfg)
+    (p_spec, _, b_spec), _ = step_specs(cfg, "train", mesh, global_batch,
+                                        seq, tc, rules)
+    spec_leaves = tree_leaves(p_spec)
+    group = mesh.group
+    n, m = mesh.shape["data"], tc.microbatches
+    split = runtime.data_dim(b_spec["targets"]) == 0
+    if global_batch % (m * n if split else m):
+        raise ValueError(f"a global batch of {global_batch} does not split "
+                         f"into {m} microbatches over {n} processes")
+    rows = global_batch // (m * n) if split else global_batch // m
+    first = runtime.coords(mesh)["data"] * rows if split else 0
+
+    def part(batch, i):
+        at = i * (global_batch // m) + first
+        return {k: torch.as_tensor(v[at:at + rows], device=dev)
+                for k, v in batch.items()}
+
+    def value_and_grad(full, batch):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(full)]
+        # the backward pass runs in the scope too: remat runs the forward
+        # again there
+        with activation_rules(mesh, rules, group if split else None):
+            logits = model.forward(tree_unflatten(full, leaves), batch, cfg)
+            total, count = cross_entropy_terms(logits, batch["targets"])
+            if split:
+                count = runtime.all_sum(count, group)
+            loss = total / count.clamp(min=1.0)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        if split:
+            loss = runtime.all_sum(loss, group)
+        return loss.detach(), grads
+
+    def train_step(params, opt_state, batch):
+        with torch.no_grad():
+            full = runtime.gather_tree(params, p_spec, mesh)
+        loss, grads = _accumulate(
+            lambda i: value_and_grad(full, part(batch, i)), m, dev)
+        del full
+        grads = tree_unflatten(params, list(grads))
+        if split:
+            grads = runtime.reduce_tree(grads, p_spec, mesh)
+        else:
+            grads = tree_map(lambda g, spec: runtime.local_block(g, spec, mesh),
+                             grads, p_spec)
+        return _update(params, opt_state, loss, tree_leaves(grads), m,
+                       lambda g: runtime.global_norm(g, spec_leaves, mesh),
+                       tc.adamw)
+
+    return train_step
 
 
 def build_prefill_step(cfg: ModelConfig, global_batch: int, seq: int,
@@ -148,6 +274,7 @@ def build_prefill_step(cfg: ModelConfig, global_batch: int, seq: int,
                        rules: Optional[Rules] = None):
     """Returns (prefill_step, (params, batch) as meta tensors);
     ``prefill_step(params, batch)`` gives the last token's logits (B, V)."""
+    _plan_only(mesh, "prefill")
     dev = resolve_device(device)
     model = get_model(cfg)
     params_abs = _meta_params(model.specs(cfg), cfg.param_dtype)
@@ -187,6 +314,7 @@ def build_decode_step(cfg: ModelConfig, global_batch: int, max_seq: int,
     Returns (serve_step, (params, cache, lengths, tokens) as meta tensors);
     ``serve_step`` returns (logits (B, 1, V), cache), the cache updated in
     place."""
+    _plan_only(mesh, "decode")
     dev = resolve_device(device)
     model = get_model(cfg)
     params_abs = _meta_params(model.specs(cfg), cfg.param_dtype)

@@ -1,0 +1,233 @@
+"""One process of a CPU process group, for the tests of the port's execution
+across processes (``tests/test_torch_dist*.py``).
+
+  python tests/torch_dist_worker.py RANK WORLD STORE JOB.json
+
+``run_ranks`` starts WORLD of them and reads what they wrote.  Each joins
+a gloo group of WORLD processes through a ``FileStore`` at STORE,
+runs the job the JSON file describes and writes ``<out>/rank<RANK>.npz``.
+Imports torch, numpy and ``repro_torch`` only.  Jobs:
+
+* ``train``: the port's ``build_train_step`` on ``make_host_mesh`` for
+  ``steps`` steps, from whole params given as an ``.npz`` of ``/``-joined
+  leaf names (each process keeps its blocks: ``params_from_numpy_sharded``)
+  or from the port's seeded init, on the batches of an ``.npz``
+  (``<step>/<key>``); writes each step's loss and grad norm, ``count``, the
+  mesh's shape, the shapes of this process's params, ``mu`` and ``nu``
+  blocks, gathered whole, the params after the last step and, for an MoE,
+  the experts each token kept at every routing (``recording_routes``).
+* ``norm``: ``global_norm`` of a tree with a split and a replicated leaf.
+* ``model_axis``: builds the train and prefill steps on a mesh with
+  ``model`` = 2 and records what each raises.
+* ``ckpt_save``: one step from the seeded init, then ``save_sharded`` at
+  step 1; writes the whole state gathered.
+* ``ckpt_restore``: ``restore_sharded`` into zero blocks; writes the whole
+  state gathered.
+"""
+
+import contextlib
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from datetime import timedelta
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.checkpoint import (CheckpointConfig, CheckpointStore,
+                                    named_leaves, restore_sharded,
+                                    save_sharded)
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import get_model, modules
+from repro_torch.parallel import runtime
+from repro_torch.parallel.sharding import PartitionSpec as P
+from repro_torch.train import (AdamWConfig, TrainConfig, build_prefill_step,
+                               build_train_step, init_state, synthetic_batch)
+from repro_torch.train.step import step_specs
+from repro_torch.weights import params_from_numpy_sharded
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def run_ranks(world: int, job: dict, tmp: Path, timeout: float = 240):
+    """Run ``job`` in a gloo group of ``world`` worker processes on a
+    FileStore in ``tmp``; returns each rank's results, in rank order.  The
+    workers are killed if they outlive ``timeout`` seconds."""
+    tmp.mkdir(parents=True, exist_ok=True)
+    job = dict(job, out=str(tmp))
+    (tmp / "job.json").write_text(json.dumps(job))
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, str(r), str(world), str(tmp / "store"),
+         str(tmp / "job.json")], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=timeout)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0] * world, errs
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
+
+
+def unflatten(flat):
+    tree = {}
+    for name, v in flat.items():
+        node = tree
+        *path, leaf = name.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+@contextlib.contextmanager
+def recording_routes(calls):
+    """Appends to ``calls``, at every MoE routing, an (N, E) bool array:
+    the experts that each token's kept pairs went to."""
+    route = modules.moe_route
+
+    def record(logits, cfg):
+        plan = route(logits, cfg)
+        kept = torch.zeros((plan["idx"].shape[0], cfg.n_experts),
+                           dtype=torch.bool)
+        kept[plan["tok"], plan["idx"].reshape(-1)[plan["order"]]] = \
+            plan["keep"]
+        calls.append(kept.numpy())
+        return plan
+    with mock.patch.object(modules, "moe_route", record):
+        yield
+
+
+def config(job):
+    kw = dict(job.get("overrides", {}))
+    if "compute_dtype" in kw:
+        kw["compute_dtype"] = DTYPES[kw["compute_dtype"]]
+    return dataclasses.replace(get_config(job["arch"], smoke=True), **kw)
+
+
+def state(job, cfg, mesh, tc):
+    (p_spec, opt_spec, _), _ = step_specs(cfg, "train", mesh, job["batch"],
+                                          job["seq"], tc)
+    if job.get("init"):
+        params = params_from_numpy_sharded(
+            unflatten(dict(np.load(job["init"]))), p_spec, mesh, "cpu")
+    else:
+        full = get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+        params = runtime.shard_tree(full, p_spec, mesh)
+    return params, init_state(params, tc.adamw), {"params": p_spec,
+                                                  "opt": opt_spec}
+
+
+def whole(tree, specs, mesh, prefix):
+    return {f"{prefix}/{name}": x.numpy() for name, x in named_leaves(
+        runtime.gather_tree(tree, specs, mesh))}
+
+
+def train(job, mesh, out):
+    cfg = config(job)
+    tc = TrainConfig(microbatches=job.get("microbatches", 1),
+                     adamw=AdamWConfig(lr=job.get("lr", 1e-3)))
+    step, _ = build_train_step(cfg, job["batch"], job["seq"], tc, "cpu",
+                               mesh=mesh)
+    params, opt, specs = state(job, cfg, mesh, tc)
+    batches = np.load(job["batches"])
+    routes = []
+    with recording_routes(routes):
+        for i in range(job["steps"]):
+            batch = {k.split("/", 1)[1]: batches[k] for k in batches.files
+                     if k.startswith(f"{i}/")}
+            params, opt, metrics = step(params, opt, batch)
+            for k, v in metrics.items():
+                out[f"{k}{i}"] = float(v)
+    if routes:
+        out["routes"] = np.stack(routes)
+    out["count"] = int(opt["count"])
+    out["mesh"] = np.asarray(mesh.axis_sizes)
+    for kind, tree in (("params", params), ("mu", opt["mu"]),
+                       ("nu", opt["nu"])):
+        for name, x in named_leaves(tree):
+            out[f"shape/{kind}/{name}"] = np.asarray(x.shape)
+    out.update(whole(params, specs["params"], mesh, "p"))
+
+
+def norm(job, mesh, out):
+    rank = dist.get_rank()
+    n = dist.get_world_size()
+    split = torch.arange(4.0 * n)[rank * 4:(rank + 1) * 4]
+    rep = torch.tensor([3.0, 4.0])
+    out["norm"] = float(runtime.global_norm([split, rep],
+                                            [P("data"), P()], mesh))
+
+
+def model_axis(job, mesh, out):
+    mesh = make_host_mesh(model=2, device="cpu")
+    out["mesh"] = np.asarray(mesh.axis_sizes)
+    cfg = config(job)
+    for kind, build in (("train", build_train_step),
+                        ("prefill", build_prefill_step)):
+        try:
+            build(cfg, job["batch"], job["seq"], device="cpu", mesh=mesh)
+        except NotImplementedError as e:
+            out[f"raised/{kind}"] = str(e)
+
+
+def ckpt(job, mesh, out, save):
+    cfg = config(job)
+    tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
+    params, opt, specs = state(job, cfg, mesh, tc)
+    root = dist.get_rank() == 0
+    store = CheckpointStore(job["dir"], CheckpointConfig(keep_last=2),
+                            recover=not save) if root else None
+    tree = {"params": params, "opt": opt}
+    if save:
+        step, _ = build_train_step(cfg, job["batch"], job["seq"], tc, "cpu",
+                                   mesh=mesh)
+        params, opt, _ = step(params, opt, synthetic_batch(
+            cfg, 0, job["batch"], job["seq"]))
+        tree = {"params": params, "opt": opt}
+        save_sharded(store, 1, tree, specs, mesh)
+    else:
+        zeros = {k: torch.zeros_like(v) if isinstance(v, torch.Tensor)
+                 else v for k, v in named_leaves(tree)}
+        tree = unflatten(zeros)
+        got, tree = restore_sharded(store, tree, specs, mesh)
+        out["step"] = got
+    out.update(whole(tree, specs, mesh, "s"))
+
+
+def main():
+    rank, world, store_path, job_path = sys.argv[1:]
+    rank, world = int(rank), int(world)
+    job = json.loads(open(job_path).read())
+    torch.set_num_threads(1)
+    runtime.init_group("cpu", dist.FileStore(store_path, world), rank, world,
+                       timeout=timedelta(seconds=90))
+    try:
+        mesh = make_host_mesh(device="cpu")
+        out = {}
+        kind = job["kind"]
+        if kind in ("ckpt_save", "ckpt_restore"):
+            ckpt(job, mesh, out, kind == "ckpt_save")
+        else:
+            {"train": train, "norm": norm,
+             "model_axis": model_axis}[kind](job, mesh, out)
+        np.savez(f"{job['out']}/rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
