@@ -121,11 +121,18 @@ Phases, in order; any failure exits non-zero:
    and K3-bwd 16 launches a step by the counters and the profiler, and the
    profiler's NCCL kernels and device-to-device copies.  With one card,
    one sharded step from a state must give the one-process step's bits
-   from a clone of it; with more, an f32 step at 2 layers must give one
-   process's loss within the f32 spread, its grad norm within 1e-4 and,
-   gathered, its params within the f32 bounds.  Then the train driver under
-   torchrun at SMOKE size: a crash after step 5, the resume and an
-   uninterrupted run, with the same losses.
+   from a clone of it; that step runs the split path of a model axis of 1
+   (heads, FFN columns, vocabulary and embedding rows in one block each,
+   ``to_model``/``from_model`` and the vocabulary-parallel loss, counted
+   on a ``[parallel tp] world 1`` line); with more, an f32 step at 2
+   layers must give one process's loss within the f32 spread, its grad
+   norm within 1e-4 and, gathered, its params within the f32 bounds.
+   Then the train driver under torchrun at SMOKE size: a crash after step
+   5, the resume and an uninterrupted run, with the same losses.
+   ``tools/parallel_dp.py --model M`` runs the phase on a (cards / M, M)
+   mesh, with the mesh's prefill and a granite-moe-3b-a800m step; phase
+   2 holds and times K3 and K3-bwd at one card's heads of a model axis of
+   4 (olmo-1b 4 of 16, granite-moe 6 of 24 over 2).
 14. Checkpoints (``[checkpoint]``): crash and resume through the train
    driver on the card for olmo-1b and mamba2-370m at SMOKE size (crash
    after step 5 of 8 with a checkpoint every 3 steps, resume, and an
@@ -597,6 +604,11 @@ def phase_flash_attention():
         ("grok-1-314b prefill", *GROK_PREFILL, 48, 8, 128, bf16, True, 2e-2),
         ("jamba-v0.1-52b prefill", *PREFILL, 32, 8, 128, bf16, True, 2e-2),
         ("qwen2-vl-2b prefill", *PREFILL, 12, 2, 128, bf16, True, 2e-2),
+        # one card's heads of a model axis of 4 ([parallel tp])
+        ("olmo-1b prefill, 4 of 16 heads", *PREFILL, 4, 4, 128, bf16, True,
+         2e-2),
+        ("granite-moe-3b-a800m prefill, 6 of 24 heads", *PREFILL, 6, 2, 64,
+         bf16, True, 2e-2),
         ("ragged f32 non-causal", 1, 1000, 8, 2, 64, f32, False, 2e-3),
     ]
     record = None
@@ -684,6 +696,11 @@ def phase_flash_attention_bwd():
         ("jamba-v0.1-52b training", *JAMBA_TRAIN, 32, 8, 128, bf16, True,
          1e-2),
         ("qwen2-vl-2b training", *TRAIN, 12, 2, 128, bf16, True, 1e-2),
+        # one card's heads of a model axis of 4 ([parallel tp])
+        ("olmo-1b training, 4 of 16 heads", *TRAIN, 4, 4, 128, bf16, True,
+         1e-2),
+        ("granite-moe-3b-a800m training, 6 of 24 heads", *TRAIN, 6, 2, 64,
+         bf16, True, 1e-2),
         ("ragged f32 causal", 1, 200, 8, 2, 64, f32, True, 1e-4),
         ("ragged f32 full", 1, 200, 8, 2, 64, f32, False, 1e-4),
     ]
@@ -3091,9 +3108,21 @@ def dp_bits_check(cfg, mesh, batch):
     twin = clone_tree(params)
     params = runtime.shard_tree(params, p_spec, mesh)
     state = [params, init_state(params, tc.adamw)]
+    runtime.reset_counts()
     p1, o1, m1 = sharded(*state, batch)
+    split = dict(runtime.counts)
     p2, o2, m2 = one(twin, init_state(twin, tc.adamw), batch)
     torch.cuda.synchronize()
+    print(f"[parallel tp] world 1: the sharded step on {mesh.shape} took the "
+          f"split path (heads, FFN columns, vocabulary and embedding rows "
+          f"each one block over the model axis): to_model "
+          f"{split['to_model']}, from_model {split['from_model']}, "
+          f"vocabulary-parallel losses {split['vocab_loss']} in one step "
+          f"(remat \"full\" runs each layer's forward twice); the "
+          f"one-process step none", flush=True)
+    if min(split.values()) == 0 or runtime.counts != split:
+        fail(f"parallel tp: the world-1 sharded step counted {split}; with "
+             f"the one-process step {dict(runtime.counts)}")
     differ = dp_same_bits({"params": p1, "opt": o1, "metrics": m1},
                           {"params": p2, "opt": o2, "metrics": m2})
     print(f"[parallel dp] world 1: one sharded step from a state and the "
@@ -3122,18 +3151,37 @@ def dp_param_diffs(a, b):
     return worst, over / n
 
 
-def dp_f32_check(mesh, world):
-    """World > 1 only: one f32 step of olmo-1b cut to DP_CHECK's layers at
-    global batch 2·world, sharded, against the one-process step on the
-    whole batch on rank 0.  The loss is held to twice the f32 spread the
-    same step shows between the whole batch and ``world`` microbatches
-    (the same sums in another order), and at least 1e-5 relative; the grad
-    norm (the gradients reduce-scattered and all-reduced by NCCL) to 1e-4
+def verdict(ok, root=0):
+    """Every process of the default group learns rank ``root``'s ``ok``, so
+    that a failed check ends them all (none is left waiting in a
+    collective)."""
+    import torch.distributed as dist
+    flag = [bool(ok)]
+    dist.broadcast_object_list(flag, src=root)
+    return flag[0]
+
+
+def dp_f32_check(mesh, tag):
+    """More than one process only: one f32 step of olmo-1b cut to
+    DP_CHECK's layers at global batch 2 a ``data`` coordinate, sharded over
+    the mesh, against the one-process step on the whole batch on rank 0.
+    The loss is held to twice the f32 spread the same step shows between
+    the whole batch and k microbatches (the same sums in another order; k
+    the ``data`` size, or 2), and at least 1e-5 relative.  On a mesh
+    without a model axis: the grad norm
+    (the gradients reduce-scattered and all-reduced by NCCL) to 1e-4
     relative; the params after the step, gathered whole, to
     tests/test_torch_train.py's f32 bounds for one step: 2·lr at the worst
-    element and 1e-5 at all but a 1e-3 share.  The same step's f32 spread
-    in the params, one process's whole batch against ``world``
-    microbatches, is printed beside them."""
+    element and 1e-5 at all but a 1e-3 share.  With a model axis the split
+    reorders sums inside every layer (over heads, FFN columns and the
+    vocabulary), and the f32 step at this width is ill conditioned (ROADMAP
+    F7, F18): so the grad norm and the params are held against the same
+    step in f64 on one process (naive attention: K3 has no f64), to at
+    most twice the one-process f32 step's own distance from it (and at
+    least the bounds above; the worst element to 2·lr and the f32
+    rounding of a param, 1e-6).  The same step's f32 spread in the params,
+    one process's whole batch against k microbatches, is printed beside
+    them."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -3141,12 +3189,14 @@ def dp_f32_check(mesh, world):
                                    build_train_step, init_state,
                                    synthetic_batch)
     from repro_torch.parallel import runtime
+    from repro_torch.parallel.sharding import tree_map
     from repro_torch.train.step import step_specs
     layers, seq = DP_CHECK
     cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=layers,
                               compute_dtype=torch.float32,
                               attn_impl="chunked", remat="full")
-    b = 2 * world
+    n, split = mesh.shape["data"], mesh.shape["model"] > 1
+    b, k = 2 * n, (n if n > 1 else 2)
     batch = synthetic_batch(cfg, 0, b, seq)
     tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
     step, _ = build_train_step(cfg, b, seq, tc, mesh=mesh)
@@ -3154,48 +3204,214 @@ def dp_f32_check(mesh, world):
     params = runtime.shard_tree(full_params(cfg), p_spec, mesh)
     params, _, m = step(params, init_state(params, tc.adamw), batch)
     loss, norm = float(m["loss"]), float(m["grad_norm"])
-    params = runtime.gather_tree(params, p_spec, mesh)
+    params = runtime.gather_whole_tree(params, p_spec, mesh)
+    ok = True
     if dist.get_rank() == 0:
         got, ps = [], []
-        for mb in (1, world):
+        runs = [(1, cfg), (k, cfg)]
+        if split:
+            runs.append((1, dataclasses.replace(
+                cfg, compute_dtype=torch.float64, param_dtype=torch.float64,
+                attn_impl="naive")))
+        for mb, c in runs:
             tcm = TrainConfig(microbatches=mb, adamw=tc.adamw)
-            one, _ = build_train_step(cfg, b, seq, tcm)
-            p = full_params(cfg)
+            one, _ = build_train_step(c, b, seq, tcm)
+            p = tree_map(lambda x: x.to(c.param_dtype), full_params(cfg))
             p, _, m1 = one(p, init_state(p, tc.adamw), batch)
             got.append((float(m1["loss"]), float(m1["grad_norm"])))
             ps.append(p)
         spread = abs(got[0][0] - got[1][0])
         bound = max(2 * spread, 1e-5 * abs(got[0][0]))
-        worst, share = dp_param_diffs(params, ps[0])
         own = dp_param_diffs(ps[1], ps[0])
-        del ps
         lr = tc.adamw.lr
-        print(f"[parallel dp] f32 check, olmo-1b {layers} layers, batch {b} "
-              f"seq {seq}: loss over {world} processes {loss:.7f}, one "
+        if split:
+            # against f64: the split step, and the one-process f32 step
+            ref_norm = got[2][1]
+            worst, share = dp_param_diffs(params, ps[2])
+            one_worst, one_share = dp_param_diffs(ps[0], ps[2])
+            norm_bound = max(1e-4 * abs(ref_norm),
+                             2 * abs(got[0][1] - ref_norm))
+            share_bound = max(1e-3, 2 * one_share)
+            # an element whose gradient's sign differs moves 2·lr apart,
+            # and an f32 param lies up to its rounding from its f64 twin
+            worst_bound = 2 * tc.adamw.lr + 1e-6
+            against = (f"the one-process f64 step (naive attention): "
+                       f"grad_norm {ref_norm:.6f}, the one-process f32 step "
+                       f"{got[0][1]:.6f} (|diff| "
+                       f"{abs(got[0][1] - ref_norm):.3g}, params max |diff| "
+                       f"{one_worst:.3g}, share over 1e-5 {one_share:.3g})")
+        else:
+            ref_norm = got[0][1]
+            worst, share = dp_param_diffs(params, ps[0])
+            norm_bound, share_bound = 1e-4 * abs(ref_norm), 1e-3
+            worst_bound = 2 * tc.adamw.lr
+            against = f"one process {ref_norm:.6f}"
+        del ps
+        print(f"{tag} f32 check, olmo-1b {layers} layers, batch {b} "
+              f"seq {seq}: loss on {mesh.shape} {loss:.7f}, one "
               f"process {got[0][0]:.7f} (|diff| {abs(loss - got[0][0]):.3g};"
               f" the f32 spread of one process's whole batch against "
-              f"{world} microbatches {spread:.3g}; bound {bound:.3g}); "
-              f"grad_norm {norm:.6f}, one process {got[0][1]:.6f} (|diff| "
-              f"{abs(norm - got[0][1]):.3g}; bound "
-              f"{1e-4 * abs(got[0][1]):.3g}); the params after the step, "
-              f"gathered: max |diff| {worst:.3g} (bound {2 * lr:.3g}), "
-              f"share over 1e-5 {share:.3g} (bound 0.001); one process's "
-              f"whole batch against {world} microbatches: max |diff| "
-              f"{own[0]:.3g}, share over 1e-5 {own[1]:.3g}", flush=True)
-        if not (abs(loss - got[0][0]) <= bound
-                and abs(norm - got[0][1]) <= 1e-4 * abs(got[0][1])
-                and worst <= 2 * lr and share <= 1e-3):
-            fail(f"parallel dp: the f32 step over {world} processes gives "
-                 f"loss {loss}, grad_norm {norm}, params max |diff| {worst} "
-                 f"share {share}; one process's loss and grad_norm "
-                 f"{got[0]}")
+              f"{k} microbatches {spread:.3g}; bound {bound:.3g}); "
+              f"grad_norm {norm:.6f} against {against}: |diff| "
+              f"{abs(norm - ref_norm):.3g} (bound {norm_bound:.3g}); the "
+              f"params after the step, gathered: max |diff| {worst:.7g} "
+              f"(bound {worst_bound:.7g}), share over 1e-5 {share:.3g} (bound "
+              f"{share_bound:.3g}); one process's whole batch against {k} "
+              f"microbatches: max |diff| {own[0]:.3g}, share over 1e-5 "
+              f"{own[1]:.3g}", flush=True)
+        ok = (abs(loss - got[0][0]) <= bound
+              and abs(norm - ref_norm) <= norm_bound
+              and worst <= worst_bound and share <= share_bound)
     del params
+    if not verdict(ok):
+        fail(f"{tag}: the f32 step on {mesh.shape} is outside its bounds")
+
+
+def tp_prefill(mesh, tag):
+    """The mesh's prefill at full olmo-1b width (batch 2 a data
+    coordinate, seq 4096, K3): in f32, each process's block of the last
+    token's logits (its rows over data, its vocabulary columns over model)
+    gathered whole, against the one-process prefill in f64 on rank 0
+    (naive attention: K3 has no f64), within twice the one-process f32
+    prefill's distance from it and at least 1e-5 of the largest |logit|
+    (the split reorders sums inside every layer, as ``dp_f32_check``
+    says); then in bf16, timed by CUDA events, with its K3 launches on
+    every rank."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.parallel import runtime
+    from repro_torch.parallel.sharding import tree_map
+    from repro_torch.train import build_prefill_step, synthetic_batch
+    from repro_torch.train.step import step_specs
+    b, seq = 2 * mesh.shape["data"], PREFILL[1]
+    for dt in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked",
+                                  compute_dtype=dt)
+        batch = synthetic_batch(cfg, 0, b, seq)
+        batch.pop("targets")
+        step, _ = build_prefill_step(cfg, b, seq, mesh=mesh)
+        (p_spec, _), out_spec = step_specs(cfg, "prefill", mesh, b, seq)
+        whole = full_params(cfg)
+        params = runtime.shard_tree(whole, p_spec, mesh)
+        if dt == torch.bfloat16:
+            del whole
+            step(params, batch)
+            torch.cuda.synchronize()
+            before = fa.launches
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            step(params, batch)
+            e1.record()
+            torch.cuda.synchronize()
+            each = [None] * dist.get_world_size()
+            dist.all_gather_object(each, fa.launches - before)
+            if dist.get_rank() == 0:
+                print(f"{tag} prefill olmo-1b bf16 batch {b} seq {seq} on "
+                      f"{mesh.shape}: {e0.elapsed_time(e1):.3f} ms by CUDA "
+                      f"events (after one warm-up call); flash_attention "
+                      f"launches on each rank {each}", flush=True)
+            if set(each) != {cfg.n_layers}:
+                fail(f"{tag}: the prefill launched K3 {each} times")
+            continue
+        got = runtime.gather_whole_tree(step(params, batch), out_spec, mesh)
+        ok = True
+        if dist.get_rank() == 0:
+            one, _ = build_prefill_step(cfg, b, seq)
+            want = one(whole, batch)
+            cfg64 = dataclasses.replace(cfg, compute_dtype=torch.float64,
+                                        param_dtype=torch.float64,
+                                        attn_impl="naive")
+            exact, _ = build_prefill_step(cfg64, b, seq)
+            ref = exact(tree_map(lambda x: x.double(), whole), batch)
+            scale = float(ref.abs().max())
+            err = float((got.double() - ref).abs().max())
+            own = float((want.double() - ref).abs().max())
+            bound = max(1e-5 * scale, 2 * own)
+            print(f"{tag} prefill f32 check, olmo-1b batch {b} seq {seq}: "
+                  f"the blocks of {mesh.shape} gathered {tuple(got.shape)} "
+                  f"against the one-process f64 prefill (naive attention): "
+                  f"max |diff| {err:.3g}; the one-process f32 prefill's "
+                  f"{own:.3g}, and the blocks' against it "
+                  f"{float((got - want).abs().max()):.3g} (bound "
+                  f"{bound:.3g}: twice the one-process f32 prefill's, at "
+                  f"least 1e-5 of the largest |logit| {scale:.4g})",
+                  flush=True)
+            ok = err <= bound
+            del ref
+        del whole, params, got
+        torch.cuda.empty_cache()
+        if not verdict(ok):
+            fail(f"{tag}: the prefill's logits differ from one process's")
+
+
+def tp_granite_step(mesh, tag):
+    """granite-moe-3b-a800m at full width on the mesh: 2 training steps
+    (global batch 2 a data coordinate, seq 4096, remat "full"), each
+    card holding its experts, heads and kv heads (10 of 40, 6 of 24 and 2
+    of 8 on a model axis of 4); each step's time, K3 64 and K3-bwd 32
+    launches on every rank, and each card's peak memory."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.parallel import runtime
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   build_train_step, init_state,
+                                   synthetic_batch)
+    from repro_torch.train.step import step_specs
+    cfg = dataclasses.replace(get_config(GRANITE), attn_impl="chunked")
+    b, seq = 2 * mesh.shape["data"], TRAIN[1]
+    tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
+    step, _ = build_train_step(cfg, b, seq, tc, mesh=mesh)
+    (p_spec, _, _), _ = step_specs(cfg, "train", mesh, b, seq, tc)
+    params = runtime.shard_tree(full_params(cfg), p_spec, mesh)
+    opt = init_state(params, tc.adamw)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = (2 * cfg.n_layers, cfg.n_layers)
+    for i in range(2):
+        before = (fa.launches, fa.bwd_launches)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        params, opt, m = step(params, opt, synthetic_batch(cfg, i, b, seq))
+        e1.record()
+        torch.cuda.synchronize()
+        got = (fa.launches - before[0], fa.bwd_launches - before[1])
+        each = [None] * dist.get_world_size()
+        dist.all_gather_object(each, got)
+        loss = float(m["loss"])
+        if dist.get_rank() == 0:
+            print(f"{tag} granite-moe-3b-a800m train on {mesh.shape}, global "
+                  f"batch {b} seq {seq}, step {i}: loss={loss:.6f} "
+                  f"grad_norm={float(m['grad_norm']):.6f}; "
+                  f"{e0.elapsed_time(e1):.3f} ms by CUDA events; launches "
+                  f"(flash_attention, flash_attention_bwd) on each rank "
+                  f"{each}", flush=True)
+        if set(each) != {want} or not np.isfinite(loss):
+            fail(f"{tag}: granite step {i} launched {each} for {want}, "
+                 f"loss {loss}")
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated() / 2**30)
+    if dist.get_rank() == 0:
+        print(f"{tag} granite-moe-3b-a800m train on {mesh.shape}: peak device "
+              f"memory a card " + ", ".join(f"{p:.2f}" for p in peaks)
+              + " GiB (the whole model on one card: 69.09 GiB)",
+              flush=True)
+    del params, opt
+    torch.cuda.empty_cache()
     dist.barrier()
 
 
-def dp_worker(rank, world, store_path):
+def dp_worker(rank, world, store_path, model=1):
     """One process of the [parallel dp] group, on card ``rank``: olmo-1b
-    at full width through the sharded train step (rank 0 prints)."""
+    at full width through the sharded train step on a (world / model,
+    model) mesh (rank 0 prints); with a model axis, also the mesh's
+    prefill and a granite-moe-3b-a800m training step."""
+    from datetime import timedelta
+
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -3208,22 +3424,25 @@ def dp_worker(rank, world, store_path):
     from repro_torch.train.step import step_specs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a rank that fails leaves the others in a collective: NCCL's watchdog
+    # ends them after this long
     runtime.init_group("cuda", dist.FileStore(store_path, world), rank,
-                       world)
+                       world, timeout=timedelta(minutes=2))
     try:
         say = print if rank == 0 else (lambda *a, **k: None)
-        mesh = make_host_mesh()
-        say(f"[parallel dp] {world} process(es), NCCL, one card each: host "
+        tag = "[parallel dp]" if model == 1 else "[parallel tp]"
+        mesh = make_host_mesh(model=model)
+        say(f"{tag} {world} process(es), NCCL, one card each: host "
             f"mesh {mesh.shape}", flush=True)
         cfg = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked",
                                   remat="full")
-        b, n = 2 * world, cfg.n_layers
+        b, n = 2 * mesh.shape["data"], cfg.n_layers
         batches = [synthetic_batch(cfg, i, b, DP_SEQ)
                    for i in range(TRAIN_STEPS + 1)]
         if world == 1:
             dp_bits_check(cfg, mesh, batches[0])
         else:
-            dp_f32_check(mesh, world)
+            dp_f32_check(mesh, tag)
         torch.cuda.empty_cache()
         tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
         step, _ = build_train_step(cfg, b, DP_SEQ, tc, mesh=mesh)
@@ -3244,20 +3463,23 @@ def dp_worker(rank, world, store_path):
             torch.cuda.synchronize()
             times.append(e0.elapsed_time(e1))
             got = (fa.launches - before[0], fa.bwd_launches - before[1])
+            each = [None] * world
+            dist.all_gather_object(each, got)
             loss, norm = float(m["loss"]), float(m["grad_norm"])
-            say(f"[parallel dp] olmo-1b global batch {b} seq {DP_SEQ} step "
+            say(f"{tag} olmo-1b global batch {b} seq {DP_SEQ} step "
                 f"{i}: loss={loss:.6f} grad_norm={norm:.6f}; "
                 f"{times[-1]:.3f} ms by CUDA events; launches "
-                f"flash_attention={got[0]} flash_attention_bwd={got[1]}",
-                flush=True)
-            if got != want or not (np.isfinite(loss) and np.isfinite(norm)):
-                fail(f"parallel dp: step {i} launched {got} for {want}, "
+                f"(flash_attention, flash_attention_bwd) on each rank "
+                f"{each}", flush=True)
+            if set(each) != {want} or not (np.isfinite(loss)
+                                           and np.isfinite(norm)):
+                fail(f"{tag}: step {i} launched {each} for {want}, "
                      f"loss {loss}, grad_norm {norm}")
         totals = (fa.launches, fa.bwd_launches)
         peak = torch.cuda.max_memory_allocated() / 2**30
         peaks = [None] * world
         dist.all_gather_object(peaks, peak)
-        say(f"[parallel dp] {TRAIN_STEPS} steps, median of steps 2-"
+        say(f"{tag} {TRAIN_STEPS} steps, median of steps 2-"
             f"{TRAIN_STEPS} {float(np.median(times[1:])):.3f} ms ("
             + ", ".join(f"{t:.3f}" for t in times[1:]) + "); peak device "
             "memory a rank " + ", ".join(f"{p:.2f}" for p in peaks)
@@ -3282,17 +3504,24 @@ def dp_worker(rank, world, store_path):
                 if "nccl" in name.lower() and key.lower() in name.lower():
                     ms, k = nccl.get(part, (0.0, 0))
                     nccl[part] = (ms + us / 1e3, k + c)
-        say(f"[parallel dp] the profiler's step: device busy {busy:.3f} ms; "
-            f"flash_attention kernels {k3}, flash_attention_bwd dq kernels "
-            f"{dq}; NCCL kernels " + (", ".join(
+        counted = [None] * world
+        dist.all_gather_object(counted, (k3, dq))
+        say(f"{tag} the profiler's step: device busy {busy:.3f} ms; "
+            f"(flash_attention, flash_attention_bwd dq) kernels on each "
+            f"rank {counted}; NCCL kernels " + (", ".join(
                 f"{part} {ms:.3f} ms in {k}"
                 for part, (ms, k) in sorted(nccl.items())) or "none")
             + f"; device-to-device copies {copies[0]:.3f} ms in {copies[1]}"
             + (" (a communicator of one rank copies rather than launch a "
                "kernel)" if world == 1 and not nccl else ""), flush=True)
-        if (k3, dq) != want or (world > 1 and not nccl):
-            fail(f"parallel dp: the profiler found {k3} K3, {dq} K3-bwd and "
+        if set(counted) != {want} or not verdict(world == 1 or nccl):
+            fail(f"{tag}: the profiler found {counted} K3 and K3-bwd and "
                  f"NCCL {nccl} in a step, for {want} and NCCL kernels")
+        del params, opt
+        torch.cuda.empty_cache()
+        if model > 1:
+            tp_prefill(mesh, tag)
+            tp_granite_step(mesh, tag)
         if rank == 0:
             with open(os.path.join(os.path.dirname(store_path),
                                    "totals.json"), "w") as f:
@@ -3324,39 +3553,50 @@ def dp_finish(proc, timeout=300):
     return proc.returncode, out.strip().splitlines(), err
 
 
-def phase_parallel_dp(card):
+def phase_parallel_dp(card, model=1):
     """[parallel dp]: the train step across processes on the mesh's data
     axis, one process a card in an NCCL group (spawned: the parent has
     CUDA up), at full olmo-1b width, global batch 2 a card, seq 4096,
     remat "full", TRAIN_STEPS steps: each step's time by CUDA events,
-    each rank's peak memory, the launches (K3 32, K3-bwd 16 a step) by the
-    counters and the profiler, the NCCL kernels' device time.  At world 1
-    a sharded step and the one-process step give the same bits; at
-    world > 1 an f32 step's loss, grad norm and params equal one
-    process's within f32 bounds (``dp_f32_check``).  Then the train driver under torchrun at SMOKE size: a crash,
-    the resume and an uninterrupted run.  Returns {path: {kernel:
-    launches}}."""
+    each rank's peak memory, the launches (K3 32, K3-bwd 16 a step) on
+    every rank by the counters and the profiler, the NCCL kernels' device
+    time.  At world 1 a sharded step and the one-process step give the
+    same bits, through the split path of a model axis of 1; at world > 1
+    an f32 step's loss, grad norm and params equal one process's within
+    f32 bounds (``dp_f32_check``).  Then the train driver under torchrun
+    at SMOKE size: a crash, the resume and an uninterrupted run.
+
+    With ``model`` > 1 ([parallel tp]) the mesh is (cards / model, model),
+    global batch 2 a data coordinate, and the phase adds the mesh's
+    full-width prefill (``tp_prefill``) and a granite-moe-3b-a800m
+    training step (``tp_granite_step``); the train driver, which runs the
+    data axis, is not run.  Returns {path: {kernel: launches}}."""
     import multiprocessing
     t = time.perf_counter()
     world = torch.cuda.device_count()
+    tag = "[parallel dp]" if model == 1 else "[parallel tp]"
+    if world % model:
+        fail(f"{tag}: {world} card(s) do not split into model={model}")
     torch.cuda.empty_cache()
     cards = sh("nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader").splitlines()
-    print(f"[parallel dp] {world} card(s): " + "; ".join(cards), flush=True)
+    print(f"{tag} {world} card(s): " + "; ".join(cards), flush=True)
     if world == 1:
-        print(f"[parallel dp] one card: the numbers across cards (an f32 "
+        print(f"{tag} one card: the numbers across cards (an f32 "
               f"step over several processes, NCCL between cards) wait for a "
               f"machine with more; {card}", flush=True)
     ctx = multiprocessing.get_context("spawn")
+    b = 2 * world // model
     with tempfile.TemporaryDirectory(prefix="dp_") as tmp:
         procs = [ctx.Process(target=dp_worker,
-                             args=(r, world, os.path.join(tmp, "store")))
+                             args=(r, world, os.path.join(tmp, "store"),
+                                   model))
                  for r in range(world)]
         for p in procs:
             p.start()
         try:
             for p in procs:
-                p.join(timeout=600)
+                p.join(timeout=900)
         finally:
             for p in procs:
                 if p.is_alive():
@@ -3364,48 +3604,55 @@ def phase_parallel_dp(card):
                     p.join()
         codes = [p.exitcode for p in procs]
         if codes != [0] * world:
-            fail(f"parallel dp: the workers exited {codes}")
+            fail(f"{tag}: the workers exited {codes}")
         with open(os.path.join(tmp, "totals.json")) as f:
             totals = json.load(f)
-        base = ["--smoke", "--device", "cuda", "--steps", "8", "--batch",
-                str(2 * world), "--seq", "32", "--ckpt-every", "3"]
-        crashed, whole = (os.path.join(tmp, d) for d in ("crashed", "whole"))
-        t_driver = time.perf_counter()
-        # the crash and the uninterrupted run side by side
-        uninterrupted = dp_driver(world, base + ["--ckpt-dir", whole])
-        rc, lines, err = dp_finish(dp_driver(
-            world, base + ["--ckpt-dir", crashed, "--fail-at", "5"]))
-        for line in lines:
-            print(f"[parallel dp driver --fail-at 5] {line}", flush=True)
-        codes = re.findall(r"exitcode\s*:\s*(-?\d+)", err)
-        print(f"[parallel dp driver --fail-at 5] torchrun rc {rc}, the "
-              f"processes' exit codes {codes}", flush=True)
-        if "42" not in codes or not set(codes) <= {"42", "-15"} \
-                or sorted(step_losses(lines)) != list(range(6)):
-            fail(f"parallel dp: the crashed run: rc {rc}, {lines}, "
-                 f"{err[-2000:]}")
-        rc, resumed, err = dp_finish(dp_driver(
-            world, base + ["--ckpt-dir", crashed, "--resume"]))
-        rc2, full, err2 = dp_finish(uninterrupted)
-        for label, out in (("--resume", resumed), ("uninterrupted", full)):
-            for line in out:
-                print(f"[parallel dp driver {label}] {line}", flush=True)
-        want = step_losses(full)
-        got = step_losses(lines) | step_losses(resumed)
-        if rc or rc2 or not resumed or resumed[0] != "resumed from step 5" \
-                or sorted(want) != list(range(8)) or got != want:
-            fail(f"parallel dp: resume rc {rc}, uninterrupted rc {rc2}: "
-                 f"{got} against {want}: {err[-2000:]} {err2[-2000:]}")
+        if model == 1:
+            dp_driver_runs(world, tmp)
+    print(f"{tag} phase wall {time.perf_counter() - t:.3f} s", flush=True)
+    return {f"parallel {tag[10:-1]} olmo-1b train, {world} process(es), "
+            f"model axis {model}, global batch {b}, {TRAIN_STEPS} steps": {
+                "flash_attention": totals[0],
+                "flash_attention_bwd": totals[1]}}
+
+
+def dp_driver_runs(world, tmp):
+    """The train driver under torchrun at SMOKE size, one process a card:
+    a crash after step 5, the resume and an uninterrupted run, which must
+    give the same losses."""
+    base = ["--smoke", "--device", "cuda", "--steps", "8", "--batch",
+            str(2 * world), "--seq", "32", "--ckpt-every", "3"]
+    crashed, whole = (os.path.join(tmp, d) for d in ("crashed", "whole"))
+    t_driver = time.perf_counter()
+    # the crash and the uninterrupted run side by side
+    uninterrupted = dp_driver(world, base + ["--ckpt-dir", whole])
+    rc, lines, err = dp_finish(dp_driver(
+        world, base + ["--ckpt-dir", crashed, "--fail-at", "5"]))
+    for line in lines:
+        print(f"[parallel dp driver --fail-at 5] {line}", flush=True)
+    codes = re.findall(r"exitcode\s*:\s*(-?\d+)", err)
+    print(f"[parallel dp driver --fail-at 5] torchrun rc {rc}, the "
+          f"processes' exit codes {codes}", flush=True)
+    if "42" not in codes or not set(codes) <= {"42", "-15"} \
+            or sorted(step_losses(lines)) != list(range(6)):
+        fail(f"parallel dp: the crashed run: rc {rc}, {lines}, "
+             f"{err[-2000:]}")
+    rc, resumed, err = dp_finish(dp_driver(
+        world, base + ["--ckpt-dir", crashed, "--resume"]))
+    rc2, full, err2 = dp_finish(uninterrupted)
+    for label, out in (("--resume", resumed), ("uninterrupted", full)):
+        for line in out:
+            print(f"[parallel dp driver {label}] {line}", flush=True)
+    want = step_losses(full)
+    got = step_losses(lines) | step_losses(resumed)
+    if rc or rc2 or not resumed or resumed[0] != "resumed from step 5" \
+            or sorted(want) != list(range(8)) or got != want:
+        fail(f"parallel dp: resume rc {rc}, uninterrupted rc {rc2}: "
+             f"{got} against {want}: {err[-2000:]} {err2[-2000:]}")
     print(f"[parallel dp] the driver under torchrun ({world} process(es)): "
           f"crashed after step 5, resumed from step 5, the losses of steps "
           f"0-7 equal to the uninterrupted run's; wall "
           f"{time.perf_counter() - t_driver:.3f} s", flush=True)
-    print(f"[parallel dp] phase wall {time.perf_counter() - t:.3f} s",
-          flush=True)
-    return {f"parallel dp olmo-1b train, {world} process(es), global batch "
-            f"{2 * world}, {TRAIN_STEPS} steps": {
-                "flash_attention": totals[0],
-                "flash_attention_bwd": totals[1]}}
 
 
 def main() -> int:

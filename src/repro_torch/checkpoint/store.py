@@ -20,9 +20,10 @@ number of restarts; the JAX store loses the checkpoints that were still
 in the WAL at its first recovery when it is recovered a second time.
 
 On a mesh that runs (``parallel.runtime``), ``save_sharded`` and
-``restore_sharded`` take trees of this process's blocks: the store holds
-whole tensors, in the same directory format, so a checkpoint saved by n
-processes restores on any other number, and in the one-process store.
+``restore_sharded`` take trees of this process's blocks, split over the
+mesh's ``data`` and ``model`` axes: the store holds whole tensors, in the
+same directory format, so a checkpoint saved on one mesh restores on any
+other shape or number of processes, and in the one-process store.
 On a mesh without a group they are ``save`` and ``restore(like=...)``.
 
 A tree is a nested dict of tensors.  Its leaves are named by their keys,
@@ -233,7 +234,7 @@ def save_sharded(store: Optional[CheckpointStore], step: int, tree: Any,
     rank0 = runtime.rank(mesh) == 0
 
     def whole(x, spec):
-        x = runtime.gather_tree(x, spec, mesh)
+        x = runtime.gather_whole_tree(x, spec, mesh)
         return x.cpu() if rank0 else None
     full = tree_map(whole, tree, spec_tree)
     if rank0:

@@ -6,6 +6,16 @@ packages with no reshaping.  Attention, norm, RoPE and FFN math is plain
 PyTorch, as the JAX package's is plain jnp, except where the JAX package
 marks the flash-attention kernel's place (``attn_impl == "chunked"``): there
 ``kernels.ops.attention`` runs, the hand-written kernel for a CUDA tensor.
+
+Under a step that runs across processes with a ``model`` axis
+(``parallel.ctx.model_split``), each layer computes on its blocks of the
+leaves that the step splits over ``model``: attention on its heads, the
+dense FFN on its columns, the MoE on its experts, the unembedding and the
+loss on its vocabulary columns, the embedding on its rows.  A replicated
+activation enters such a computation through ``runtime.to_model`` and its
+partial output leaves through ``runtime.from_model``.  A leaf that
+``spec_for`` leaves whole (a dimension that does not divide) is computed
+whole, on every process alike.
 """
 
 from __future__ import annotations
@@ -21,7 +31,7 @@ from torch.profiler import record_function
 from ..device import resolve_device
 from ..kernels import ops
 from ..parallel import runtime
-from ..parallel.ctx import batch_group, constrain
+from ..parallel.ctx import Split, batch_group, constrain, model_split
 
 Params = Dict[str, Any]
 
@@ -83,24 +93,102 @@ def unstack_layers(layers: Params) -> list:
     return [{k: part[i] for k, part in parts.items()} for i in range(n)]
 
 
+def _split(spec: ParamSpec) -> Optional[Split]:
+    """Where the running step splits the leaf ``spec`` declares over the
+    ``model`` axis, or None (``parallel.ctx.model_split``)."""
+    return model_split(spec.shape, spec.axes)
+
+
+def vocab_split(cfg) -> Optional[Split]:
+    """The split of the unembedding's vocabulary columns over ``model``,
+    or None: the logits are then this process's columns."""
+    return model_split((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+
+
+def embed_tokens(table, tokens, cfg):
+    """The rows of ``tokens`` in the (vocab, d_model) table, in the compute
+    dtype.  Where the step splits the table's rows over ``model``, each
+    process looks the tokens up in its rows (zero for the others) and
+    ``from_model`` adds: one term of each sum is not zero, so the sum is
+    exact.  A negative token counts from the end, as indexing counts it."""
+    sp = model_split((cfg.vocab, cfg.d_model), ("vocab_in", "embed_in"))
+    if sp is None:
+        # rows first, then the cast: the same values as casting the table
+        return table[tokens].to(cfg.compute_dtype)
+    v0, v1 = sp.block(cfg.vocab)
+    local = torch.where(tokens < 0, tokens + cfg.vocab, tokens) - v0
+    inside = (local >= 0) & (local < v1 - v0)
+    rows = table[local.clamp(0, v1 - v0 - 1)].to(cfg.compute_dtype)
+    return runtime.from_model(torch.where(inside[..., None], rows, 0),
+                              sp.group)
+
+
 def unembed(params: Params, x, cfg):
-    """Final norm, then the (d_model, vocab) product: logits (B, S, V)."""
+    """Final norm, then the (d_model, vocab) product: logits (B, S, V), or
+    this process's vocabulary columns of them (``vocab_split``)."""
     x = norm(x, params["final_norm"], cfg)
+    sp = vocab_split(cfg)
+    if sp is not None:
+        x = runtime.to_model(x, sp.group)
     return torch.einsum("bsd,dv->bsv", x,
                         params["unembed"].to(cfg.compute_dtype))
 
 
-def cross_entropy_terms(logits, targets):
+def _all_reduce(x, op, group):
+    if group is not None:
+        dist.all_reduce(x, op=op, group=group)
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """The next-token loss's (sum, count) over logits that are the columns
+    [v0, v0 + V_local) of the vocabulary, in f32: log Σ exp by the max
+    (all-reduced MAX over ``group``) and the Σ exp below it (all-reduced
+    SUM); the gold logit from the process whose columns hold the target
+    (all-reduced SUM: one term is not zero).  Backward, each process's
+    gradient is softmax − one-hot on its own columns.  Without a group the
+    collectives are skipped: one process, every column, the same
+    operations."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, group, v0):
+        x = logits.float()
+        mask = targets >= 0
+        local = targets.long() - v0
+        inside = mask & (local >= 0) & (local < x.shape[-1])
+        local = torch.where(inside, local, 0)
+        m = x.amax(dim=-1)
+        _all_reduce(m, dist.ReduceOp.MAX, group)
+        se = torch.exp(x - m[..., None]).sum(dim=-1)
+        _all_reduce(se, dist.ReduceOp.SUM, group)
+        logz = m + torch.log(se)
+        gold = torch.where(inside, x.gather(-1, local[..., None])[..., 0], 0)
+        _all_reduce(gold, dist.ReduceOp.SUM, group)
+        maskf = mask.float()
+        count = maskf.sum()
+        ctx.mark_non_differentiable(count)
+        ctx.save_for_backward(logits, logz, local, inside, maskf)
+        return ((logz - gold) * maskf).sum(), count
+
+    @staticmethod
+    def backward(ctx, dtotal, dcount):
+        logits, logz, local, inside, maskf = ctx.saved_tensors
+        p = torch.exp(logits.float() - logz[..., None])
+        p = p.scatter_add(-1, local[..., None], -inside.float()[..., None])
+        return (p * (maskf * dtotal)[..., None]).to(logits.dtype), None, \
+            None, None
+
+
+def cross_entropy_terms(logits, targets, split: Optional[Split] = None):
     """(the sum of the next-token losses over targets >= 0, their count),
     both f32 scalars: a masked mean over a batch split across processes
-    divides the sum of the sums by the sum of the counts."""
-    logits = logits.float()
-    targets = targets.long()
-    logz = torch.logsumexp(logits, dim=-1)
-    # masked targets (< 0) pick any column: their term is multiplied by 0
-    gold = logits.gather(-1, targets.clamp(min=0)[..., None]).squeeze(-1)
-    mask = (targets >= 0).float()
-    return ((logz - gold) * mask).sum(), mask.sum()
+    divides the sum of the sums by the sum of the counts.  With ``split``
+    (``vocab_split``) the logits are this process's vocabulary columns and
+    the loss is vocabulary-parallel over the model group."""
+    if split is None:
+        return _CrossEntropy.apply(logits, targets, None, 0)
+    runtime.counts["vocab_loss"] += 1
+    return _CrossEntropy.apply(logits, targets, split.group,
+                               split.rank * logits.shape[-1])
 
 
 def cross_entropy(logits, targets):
@@ -219,6 +307,17 @@ def _rope_qk(q, k, positions, cfg):
     return q, k
 
 
+def _kv_for_heads(t, h0: int, h1: int, groups: int):
+    """The kv heads (dimension 2 of the whole ``t``) that q heads [h0, h1)
+    read, head h reading kv head h // ``groups``, as a GQA layout for those
+    q heads: a run of kv heads where [h0, h1) covers whole groups or lies
+    in one, else one kv head for each q head."""
+    first, last = h0 // groups, (h1 - 1) // groups
+    if first == last or (h0 % groups == 0 and h1 % groups == 0):
+        return t[:, :, first:last + 1]
+    return t.index_select(2, torch.arange(h0, h1, device=t.device) // groups)
+
+
 def gqa_attention(p: Params, x, positions, cfg, causal: bool = True,
                   kv_override: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None,
@@ -231,14 +330,30 @@ def gqa_attention(p: Params, x, positions, cfg, causal: bool = True,
     self-attention goes through ``kernels.ops.attention`` (the flash
     kernel on the card; ``attn_chunk`` is not used: the kernel picks its
     own tiles); otherwise the (S, S_kv) scores are materialised.
+
+    Where the step splits the heads over ``model``, this process computes
+    its q heads and, with ``wo``'s rows on the same heads, a partial
+    output that ``from_model`` adds up.  Its kv heads are its block where
+    the kv heads split too; where they do not, k and v are computed whole
+    and it takes the kv heads its q heads read (``_kv_for_heads``).
     """
     b, s, _ = x.shape
     cdt = cfg.compute_dtype
     p = {k: w.to(cdt) for k, w in p.items()}
-    q = _einsum("bsd,dhk->bshk", x, p["wq"]).to(cdt)
+    specs = attention_specs(cfg)
+    hs = _split(specs["wq"]) if kv_override is None else None
+    xq = x if hs is None else runtime.to_model(x, hs.group)
+    q = _einsum("bsd,dhk->bshk", xq, p["wq"]).to(cdt)
     if kv_override is None:
-        k = _einsum("bsd,dhk->bshk", x, p["wk"]).to(cdt)
-        v = _einsum("bsd,dhk->bshk", x, p["wv"]).to(cdt)
+        if hs is None or _split(specs["wk"]) is not None:
+            k = _einsum("bsd,dhk->bshk", xq, p["wk"]).to(cdt)
+            v = _einsum("bsd,dhk->bshk", xq, p["wv"]).to(cdt)
+        else:
+            h0, h1 = hs.block(cfg.n_heads)
+            g = cfg.n_heads // cfg.kv_heads
+            k, v = (_kv_for_heads(runtime.to_model(
+                _einsum("bsd,dhk->bshk", x, p[w]).to(cdt), hs.group),
+                h0, h1, g) for w in ("wk", "wv"))
         q, k = _rope_qk(q, k, positions, cfg)
         kv_pos = positions
     else:
@@ -247,12 +362,13 @@ def gqa_attention(p: Params, x, positions, cfg, causal: bool = True,
         v = v.to(cdt)
         q, _ = _rope_qk(q, q, positions, cfg)   # rope on q only
         kv_pos = kv_positions
+    hq, hkv = q.shape[2], k.shape[2]
     if cfg.attn_impl == "chunked" and kv_override is None and causal:
         ctx = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=True)
     else:
-        groups = cfg.n_heads // cfg.kv_heads
-        qg = q.reshape(b, s, cfg.kv_heads, groups, cfg.head_dim)
+        groups = hq // hkv
+        qg = q.reshape(b, s, hkv, groups, cfg.head_dim)
         scores = torch.einsum("bskgd,btkd->bkgst", qg, k) \
             / math.sqrt(cfg.head_dim)
         if causal and kv_override is None:
@@ -265,8 +381,10 @@ def gqa_attention(p: Params, x, positions, cfg, causal: bool = True,
             scores = scores.masked_fill(~valid, -1e30)
         w = torch.softmax(scores.float(), dim=-1).to(cdt)
         ctx = torch.einsum("bkgst,btkd->bskgd", w, v)
-    ctx = ctx.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    ctx = ctx.reshape(b, s, hq, cfg.head_dim)
     out = torch.einsum("bshk,hkd->bsd", ctx, p["wo"])
+    if hs is not None:
+        out = runtime.from_model(out, hs.group)
     return out, (k, v)
 
 
@@ -299,12 +417,19 @@ def ffn_specs(cfg) -> Params:
 
 
 def dense_ffn(p: Params, x, cfg):
+    """The SwiGLU or GELU FFN; where the step splits its ``mlp`` columns
+    over ``model``, on this process's columns of ``wi`` and ``wg`` and rows
+    of ``wo``, the partial output added up by ``from_model``."""
     p = {k: w.to(cfg.compute_dtype) for k, w in p.items()}
+    sp = _split(ffn_specs(cfg)["wi"])
+    if sp is not None:
+        x = runtime.to_model(x, sp.group)
     if cfg.ffn_act == "swiglu":
         h = F.silu(x @ p["wg"]) * (x @ p["wi"])
     else:
         h = F.gelu(x @ p["wi"], approximate="tanh")   # jax.nn.gelu's default
-    return h @ p["wo"]
+    y = h @ p["wo"]
+    return y if sp is None else runtime.from_model(y, sp.group)
 
 
 def moe_route(logits, cfg) -> Params:
@@ -447,13 +572,41 @@ class _Combine(torch.autograd.Function):
         return dout, dgates, None, None
 
 
-def moe_experts(p: Params, xt, plan, cfg):
+def _local_maps(maps: Params, s0: int, s1: int) -> Params:
+    """``_moe_maps`` cut to the buffer's slots [s0, s1) (one process's
+    experts): a pair in another slot is not kept, a kept pair's slot
+    counts from s0."""
+    keep = maps["pair_keep"] & (maps["pair_slot"] >= s0) \
+        & (maps["pair_slot"] < s1)
+    return {"pair_slot": torch.where(keep, maps["pair_slot"] - s0, 0),
+            "pair_keep": keep, "jperm": maps["jperm"],
+            **{k: maps[k][s0:s1] for k in ("slot_tok", "slot_pos",
+                                            "filled")}}
+
+
+def moe_experts(p: Params, xt, plan, cfg, split: Optional[Split] = None):
     """The MoE FFN on a routing plan: xt (N, D) in the compute dtype into
     the (E, cap, D) buffer, the per-expert SwiGLU products, and the gated
-    combine; returns (N, D).  ``p`` is already in the compute dtype."""
+    combine; returns (N, D).  ``p`` is already in the compute dtype.
+
+    With ``split`` (the experts' weights split over ``model``), the plan
+    is every process's, and this process runs its part: over the expert
+    dimension (``split.dim`` 0), only its experts, rows [e0·cap, e1·cap)
+    of the buffer, and combines only their pairs; over the ``mlp``
+    columns, every expert on its columns.  The tokens and the gates enter
+    through ``to_model`` and the partial output leaves through
+    ``from_model``."""
     n, d = xt.shape
     e, cap = cfg.n_experts, plan["cap"]
     maps = _moe_maps(plan, e)
+    gates = plan["gates"]
+    if split is not None:
+        xt = runtime.to_model(xt, split.group)
+        gates = runtime.to_model(gates, split.group)
+        if split.dim == 0:
+            e0, e1 = split.block(e)
+            maps = _local_maps(maps, e0 * cap, e1 * cap)
+            e = e1 - e0
     with record_function("moe.dispatch"):
         # expert-sharded buffer: under expert parallelism the dispatch is
         # the token all-to-all
@@ -464,8 +617,9 @@ def moe_experts(p: Params, xt, plan, cfg):
             torch.einsum("ecd,edf->ecf", buf, p["wi"])
         out = torch.einsum("ecf,efd->ecd", h, p["wo"])
     with record_function("moe.combine"):
-        return _Combine.apply(out.reshape(e * cap, d), plan["gates"],
-                              plan["order"], maps)
+        y = _Combine.apply(out.reshape(e * cap, d), gates, plan["order"],
+                           maps)
+    return y if split is None else runtime.from_model(y, split.group)
 
 
 def moe_ffn(p: Params, x, cfg):
@@ -484,16 +638,26 @@ def moe_ffn(p: Params, x, cfg):
     order, which is the batch's row order), all of them are routed and run
     through the experts, and this process keeps its own rows.  Every
     process then does the whole batch's expert work: correct, not fast
-    (ROADMAP: an expert-parallel all-to-all)."""
+    (ROADMAP: an expert-parallel all-to-all).
+
+    Where the step splits the experts over ``model`` (expert
+    parallelism), the router is gathered whole over the model group
+    (``gather_model``), every model process routes every token alike, and
+    each runs its experts (``moe_experts``)."""
     b, s, d = x.shape
+    specs = ffn_specs(cfg)
     p = {k: w.to(cfg.compute_dtype) for k, w in p.items()}
     xt = x.reshape(b * s, d).to(cfg.compute_dtype)
     group = batch_group()
     if group is not None:
         xt = runtime.gather_rows(xt, group)
+    router = p["router"]
+    rs = _split(specs["router"])
+    if rs is not None:
+        router = runtime.gather_model(router, rs.dim, rs.group)
     with record_function("moe.route"):
-        plan = moe_route((xt @ p["router"]).float(), cfg)
-    y = moe_experts(p, xt, plan, cfg)
+        plan = moe_route((xt @ router).float(), cfg)
+    y = moe_experts(p, xt, plan, cfg, _split(specs["wi"]))
     if group is not None:
         y = y[dist.get_rank(group) * b * s:][:b * s]
     return y.reshape(b, s, d).to(x.dtype)

@@ -14,7 +14,9 @@ runs the rest again.  Under ``no_grad`` the loop is unchanged.  Covers the
 families dense, moe (the FFN is ``modules.ffn``, a MoE FFN where
 ``n_experts > 1``), vlm (M-RoPE over (B, S, 3) positions) and audio
 (encoder-only: precomputed frame embeddings through a linear adapter,
-non-causal attention, no decode).
+non-causal attention, no decode).  Under a step that splits the model
+over processes the layers compute on their blocks (``modules``); the
+logits are then this process's vocabulary columns.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ from ..device import resolve_device
 from ..parallel.ctx import constrain
 from .config import ModelConfig
 from .modules import (ParamSpec, _einsum, apply_mrope, apply_rope,
-                      attention_specs, axes_tree, cross_entropy, ffn,
-                      ffn_specs, gqa_attention, materialize, norm,
-                      stack_specs, unembed, unstack_layers)
+                      attention_specs, axes_tree, cross_entropy,
+                      embed_tokens, ffn, ffn_specs, gqa_attention,
+                      materialize, norm, stack_specs, unembed,
+                      unstack_layers)
 
 Params = Dict[str, Any]
 
@@ -111,8 +114,7 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict):
         # the tower is a stub in both packages: frames (B, S, D) arrive
         # precomputed and a linear adapter stands in for it
         return batch["frames"].to(cdt) @ params["adapter"].to(cdt)
-    # Rows first, then the cast: the same values as casting the table.
-    return params["embed"][batch["tokens"]].to(cdt)
+    return embed_tokens(params["embed"], batch["tokens"], cfg)
 
 
 def forward(params: Params, batch: Dict, cfg: ModelConfig):

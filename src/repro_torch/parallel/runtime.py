@@ -1,32 +1,49 @@
-"""Running a mesh's ``data`` axis: one process a device, in a
-``torch.distributed`` group, and the collectives that move a tree between
-its whole form and the blocks its processes hold.
+"""Running a mesh: one process a device, in a ``torch.distributed``
+group, and the collectives that move a tree between its whole form and
+the blocks its processes hold, and the activations of a split layer
+between its processes.
 
 The JAX package has no module like this one: under ``jax.jit`` with
 ``in_shardings`` XLA's partitioner inserts the all-gathers and
-reduce-scatters itself.  Here the train step calls them (``train/step.py``):
+reduce-scatters itself.  Here the train and prefill steps call them
+(``train/step.py``), and the layers call the model axis's
+(``models/modules.py``):
 
 * ``shard_tree`` keeps this process's block of each tensor of a whole tree;
-* ``gather_tree`` all-gathers the blocks back into whole tensors;
-* ``reduce_tree`` sums each whole gradient over the processes into this
-  process's block (a reduce-scatter), or whole where the leaf is
-  replicated (an all-reduce);
-* ``global_norm`` is √(Σ g²) over a tree of blocks: a split leaf's blocks
-  add up across the processes, a replicated leaf counts once;
+* ``gather_tree`` all-gathers the blocks over the ``data`` group, so that
+  each process holds its ``model`` block whole over ``data`` (the step's
+  params); ``gather_whole_tree`` gathers over both axes (checkpoints);
+* ``reduce_tree`` sums each gradient over the ``data`` group into this
+  process's block (a reduce-scatter), or whole over ``data`` where the
+  leaf is not split over it (an all-reduce);
+* ``global_norm`` is √(Σ g²) over a tree of blocks: a leaf's blocks add up
+  over every axis that splits it, and a leaf replicated over an axis
+  counts once;
 * ``gather_rows`` is a differentiable all-gather of batch rows (the MoE
   routes the whole batch's tokens, as one device does).  It stands where
   ``torch.distributed.nn.functional.all_gather`` would: that one is
   deprecated in torch 2.13, and its backward takes another collective on
   each backend (a reduce-scatter on NCCL, an all-to-all and a stacked sum
-  on gloo); this one is the same two collectives on both.
+  on gloo); this one is the same two collectives on both;
+* ``to_model`` and ``from_model``, the two conjugate operators of tensor
+  parallelism over the ``model`` group: a replicated activation enters a
+  split computation through ``to_model`` (identity forward, all-reduce of
+  its gradient backward), and a split computation's partial output leaves
+  through ``from_model`` (all-reduce forward, identity backward).  Then
+  the gradient of a leaf that every model process holds whole is whole
+  and the same on each;
+* ``gather_model`` gathers a split leaf whole over ``model`` for a
+  computation that needs all of it (the MoE's router), and gives its
+  block of the (whole, equal) gradient back.
 
-A leaf is split when its spec names ``data`` (``spec_for``'s FSDP rule),
+A leaf is split over an axis when its spec names the axis (``spec_for``),
 whatever the axis's size: at one process each collective is a copy, so a
-group of one runs the same code as a group of many.  The ``model`` axis is
-not executed (``check_executable``).  The collectives are
-``all_gather_into_tensor`` and ``reduce_scatter_tensor``, which both the
-gloo and the NCCL backends run; a dimension other than 0 is moved to the
-front first.
+group of one runs the same code as a group of many.  ``counts`` counts the
+calls of ``to_model``, ``from_model`` and the vocabulary-parallel loss
+(``models/modules.py``), so a run can show that it took the split path.
+The collectives are ``all_gather_into_tensor``, ``reduce_scatter_tensor``
+and ``all_reduce``, which both the gloo and the NCCL backends run; a
+dimension other than 0 is moved to the front first.
 """
 
 from __future__ import annotations
@@ -88,18 +105,35 @@ def init_group(device="cuda", store: Optional[dist.Store] = None,
     return dev
 
 
-def check_executable(mesh: Mesh) -> None:
+counts = {"to_model": 0, "from_model": 0, "vocab_loss": 0}
+
+
+def reset_counts() -> None:
+    for k in counts:
+        counts[k] = 0
+
+
+def check_executable(mesh: Mesh, family: Optional[str] = None) -> None:
     """Raise unless the mesh's processes can run it: one process a device,
-    and no axis but ``data`` larger than 1."""
+    no axis but ``data`` and ``model`` larger than 1, and a ``model`` axis
+    larger than 1 only for the transformer families (``family``: the
+    model's; Mamba-2's packed ``w_in`` and the hybrid's Mamba positions
+    have no split layout yet)."""
     n = dist.get_world_size(mesh.group)
     if n != mesh.size:
         raise ValueError(f"a mesh of {mesh.size} devices in a group of {n} "
                          "processes")
-    wide = {a: s for a, s in mesh.shape.items() if a != "data" and s > 1}
+    wide = {a: s for a, s in mesh.shape.items()
+            if a not in ("data", "model") and s > 1}
     if wide:
         raise NotImplementedError(
-            f"mesh axes {wide}: only the data axis is executed; tensor and "
-            "expert parallelism over the model axis are ROADMAP item 16")
+            f"mesh axes {wide}: only the data and model axes are executed "
+            "(ROADMAP item 16)")
+    if mesh.shape.get("model", 1) > 1 and family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"the {family} family on a model axis of "
+            f"{mesh.shape['model']}: Mamba-2's head split is ROADMAP item "
+            "16")
 
 
 def rank(mesh: Mesh) -> int:
@@ -117,12 +151,21 @@ def coords(mesh: Mesh):
     return mesh_coords(mesh, rank(mesh))
 
 
-def data_dim(spec: PartitionSpec) -> Optional[int]:
-    """The dimension a spec splits over ``data``, or None (replicated)."""
+def axis_dim(spec: PartitionSpec, axis: str) -> Optional[int]:
+    """The dimension a spec splits over ``axis``, or None (replicated)."""
     for i, entry in enumerate(spec):
-        if "data" in spec_axes(entry):
+        if axis in spec_axes(entry):
+            if entry != axis:
+                raise NotImplementedError(
+                    f"{spec}: a dimension split over {entry}; only one "
+                    "axis a dimension is executed")
             return i
     return None
+
+
+def data_dim(spec: PartitionSpec) -> Optional[int]:
+    """The dimension a spec splits over ``data``, or None (replicated)."""
+    return axis_dim(spec, "data")
 
 
 def full_shape(shape: Tuple[int, ...], spec: PartitionSpec,
@@ -159,13 +202,38 @@ def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 
 def gather_tree(local_tree, spec_tree, mesh: Mesh):
-    """The whole tensors from every process's blocks: an all-gather along
-    each split dimension, blocks in rank order.  A replicated leaf is
-    returned as it is."""
+    """Each block gathered whole over the ``data`` group (an all-gather
+    along the dimension split over ``data``, blocks in coordinate order);
+    a leaf's ``model`` block stays a block.  A leaf not split over
+    ``data`` is returned as it is."""
+    group = mesh.axis_group("data")
+
     def gather(x, spec):
         dim = data_dim(spec)
-        return x if dim is None else _gather(x, dim, mesh.group)
+        return x if dim is None else _gather(x, dim, group)
     return tree_map(gather, local_tree, spec_tree)
+
+
+def gather_whole_tree(local_tree, spec_tree, mesh: Mesh):
+    """The whole tensors from every process's blocks: gathered over
+    ``data``, then over ``model``."""
+    group = mesh.axis_group("model")
+
+    def gather(x, spec):
+        dim = axis_dim(spec, "model")
+        return x if dim is None else _gather(x, dim, group)
+    return tree_map(gather, gather_tree(local_tree, spec_tree, mesh),
+                    spec_tree)
+
+
+def data_block(x: torch.Tensor, spec: PartitionSpec, mesh: Mesh):
+    """A view of this process's block over ``data`` of ``x``, a tensor that
+    is whole over ``data`` (and may be a block over ``model``)."""
+    dim = data_dim(spec)
+    if dim is None:
+        return x
+    k = x.shape[dim] // mesh.shape["data"]
+    return x.narrow(dim, coords(mesh)["data"] * k, k)
 
 
 def _reduce_scatter(g: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -179,31 +247,37 @@ def _reduce_scatter(g: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 
 def reduce_tree(grads, spec_tree, mesh: Mesh):
-    """Each process's whole gradients summed over the processes: into this
-    process's block where the leaf is split (a reduce-scatter), whole where
-    it is replicated (an all-reduce, in place)."""
+    """Each process's gradients (whole over ``data``) summed over the
+    ``data`` group: into this process's block where the leaf is split over
+    ``data`` (a reduce-scatter), whole over ``data`` where it is not (an
+    all-reduce, in place)."""
+    group = mesh.axis_group("data")
+
     def reduce(g, spec):
         dim = data_dim(spec)
         if dim is not None:
-            return _reduce_scatter(g, dim, mesh.group)
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=mesh.group)
+            return _reduce_scatter(g, dim, group)
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
         return g
     return tree_map(reduce, grads, spec_tree)
 
 
 def global_norm(leaves, specs, mesh: Mesh) -> torch.Tensor:
     """√(Σ g²) in f32 over a list of blocks and their specs: each leaf's
-    Σ g² is its blocks' sums added over the processes where it is split,
-    its own where it is replicated (the same on every process: counted
-    once); the leaves' sums are then added in order, as the one-process
-    step adds them."""
+    Σ g² is its block's sum added over the group of every axis that splits
+    it; over an axis that does not, the sum is the same on every process
+    and counts once.  The leaves' sums are then added in order, as the
+    one-process step adds them."""
     sq = [torch.sum(torch.square(g.float())) for g in leaves]
-    split = [i for i, spec in enumerate(specs) if data_dim(spec) is not None]
-    if split:
-        total = torch.stack([sq[i] for i in split])
-        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.group)
-        for j, i in enumerate(split):
-            sq[i] = total[j]
+    for axis in ("data", "model"):
+        split = [i for i, spec in enumerate(specs)
+                 if axis_dim(spec, axis) is not None]
+        if split:
+            total = torch.stack([sq[i] for i in split])
+            dist.all_reduce(total, op=dist.ReduceOp.SUM,
+                            group=mesh.axis_group(axis))
+            for j, i in enumerate(split):
+                sq[i] = total[j]
     return torch.sqrt(sum(sq))
 
 
@@ -230,3 +304,66 @@ def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     gradient of each process's rows is the sum of every process's gradient
     for them (a reduce-scatter)."""
     return _GatherRows.apply(x, group)
+
+
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # a copy: autograd may hand the same gradient to another branch
+        dy = dy.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(dy, op=dist.ReduceOp.SUM, group=ctx.group)
+        return dy, None
+
+
+class _FromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        # a copy: a saved product (remat's selective policy) must not change
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+def to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, a replicated activation, entering a computation split over
+    the model group: the same tensor forward; backward, its gradient is
+    the sum of every model process's (each has its own block's part)."""
+    counts["to_model"] += 1
+    return _ToModel.apply(x, group)
+
+
+def from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """A split computation's partial output, summed over the model group
+    (every process gets the whole); backward, each process's gradient is
+    the whole one, unchanged."""
+    counts["from_model"] += 1
+    return _FromModel.apply(x, group)
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        k = dy.shape[ctx.dim] // dist.get_world_size(ctx.group)
+        at = dist.get_rank(ctx.group) * k
+        return dy.narrow(ctx.dim, at, k).contiguous(), None, None
+
+
+def gather_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """A leaf's blocks along ``dim`` gathered whole over the model group,
+    for a computation that every model process runs whole and alike; the
+    gradient, whole and the same on every process, gives each its block."""
+    return _GatherModel.apply(x, dim, group)

@@ -46,6 +46,11 @@ class Mesh:
     # the torch.distributed group of the mesh's processes, one a device, in
     # the order of their coordinates; None for a mesh that only plans
     group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    # on a mesh that runs, {axis: the group of the processes that share
+    # this process's coordinates on every other axis}, in the order of
+    # their coordinate on that axis
+    axis_groups: Any = dataclasses.field(default=None, compare=False,
+                                         repr=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
@@ -59,6 +64,11 @@ class Mesh:
     @property
     def size(self) -> int:
         return math.prod(self.axis_sizes)
+
+    def axis_group(self, axis: str):
+        """The group along ``axis`` that this process is in (a mesh that
+        runs only)."""
+        return self.axis_groups[axis]
 
     @property
     def devices(self):

@@ -16,10 +16,13 @@ Given a ``mesh`` (a ``parallel.sharding.Mesh``), a step runs under
 builders return as ``in_shardings``/``out_shardings`` come from
 ``step_specs``.  A mesh that only plans splits nothing.  On a mesh that
 runs (one that carries a process group: ``make_host_mesh`` in a group),
-the train step executes the ``data`` axis as the JAX step under
-``jax.jit(in_shardings=...)`` does: the batch split by rows, params and
-AdamW moments held as FSDP blocks (``_sharded_train_step``).  Prefill and
-decode do not run across processes yet.
+the train and prefill steps execute its ``data`` and ``model`` axes as
+the JAX steps under ``jax.jit(in_shardings=...)`` do: the batch split by
+rows over ``data``, params and AdamW moments held as blocks over both
+axes (FSDP over ``data``; heads, kv heads, FFN columns, experts and
+vocabulary over ``model``), and each layer computing on its blocks
+(``_sharded_train_step``, ``_sharded_prefill_step``, ``models/modules``).
+Decode does not run across processes yet.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from torch.profiler import record_function
 from ..device import resolve_device
 from ..models import get_model
 from ..models.config import ModelConfig
-from ..models.modules import ParamSpec, cross_entropy_terms
+from ..models.modules import ParamSpec, cross_entropy_terms, vocab_split
 from ..parallel import runtime
 from ..parallel.ctx import activation_rules
 from ..parallel.sharding import (Mesh, PartitionSpec as P, Rules,
@@ -69,12 +72,33 @@ def _rules_scope(mesh: Optional[Mesh], rules: Optional[Rules]):
     return activation_rules(mesh, rules or default_rules(mesh))
 
 
+def _runs(mesh: Optional[Mesh]) -> bool:
+    """Whether ``mesh`` runs across processes (it carries a group)."""
+    return mesh is not None and mesh.group is not None
+
+
 def _plan_only(mesh: Optional[Mesh], step: str) -> None:
-    """Prefill and decode take a mesh that plans; one that runs raises."""
-    if mesh is not None and mesh.group is not None:
+    """Decode takes a mesh that plans; one that runs raises."""
+    if _runs(mesh):
         runtime.check_executable(mesh)
         raise NotImplementedError(f"the {step} step does not run across "
                                   "processes yet (ROADMAP item 16)")
+
+
+def _batch_rows(b_spec, mesh: Mesh, global_batch: int, parts: int = 1):
+    """(whether the batch is split over ``data``, the rows of each of
+    ``parts`` parts this process takes, the first of them within a
+    part).  Where the global batch does not divide over ``data``,
+    ``spec_for`` replicates it, as JAX does, and every process takes
+    every row; the ``model`` processes of one ``data`` coordinate take
+    the same rows."""
+    split = runtime.data_dim(b_spec["positions"]) == 0
+    n = mesh.shape["data"] if split else 1
+    if global_batch % (parts * n):
+        raise ValueError(f"a global batch of {global_batch} does not split "
+                         f"into {parts} microbatches over {n} processes")
+    rows = global_batch // (parts * n)
+    return split, rows, (runtime.coords(mesh)["data"] * rows if split else 0)
 
 
 def batch_specs(cfg: ModelConfig, batch_abstract: Dict, rules: Rules,
@@ -121,7 +145,7 @@ def build_train_step(cfg: ModelConfig, global_batch: int, seq: int,
     opt_abs = init_state(params_abs, tc.adamw)
     batch_abs = make_batch_abstract(cfg, global_batch, seq)
     abstract = (params_abs, opt_abs, batch_abs)
-    if mesh is not None and mesh.group is not None:
+    if _runs(mesh):
         return _sharded_train_step(cfg, global_batch, seq, tc, dev, mesh,
                                    rules or default_rules(mesh)), abstract
     m = tc.microbatches
@@ -187,47 +211,50 @@ def _update(params, opt_state, loss, grads, m: int, norm, adamw):
 def _sharded_train_step(cfg: ModelConfig, global_batch: int, seq: int,
                         tc: TrainConfig, dev: torch.device, mesh: Mesh,
                         rules: Rules):
-    """The train step on a mesh that runs its ``data`` axis, one process a
-    device (``parallel.runtime``), with the numerics of the JAX step under
-    ``jax.jit(in_shardings=..., out_shardings=...)``.
+    """The train step on a mesh that runs its ``data`` and ``model`` axes,
+    one process a device (``parallel.runtime``), with the numerics of the
+    JAX step under ``jax.jit(in_shardings=..., out_shardings=...)``.
 
     ``params`` and ``opt_state``'s ``mu`` and ``nu`` are this process's
     blocks, laid out by ``step_specs(cfg, "train", ...)`` (each of shape
     ``shard_shape``); ``count`` is whole.  ``batch`` is the whole global
-    batch; each process takes its rows.  Where the global batch does not
-    divide over the processes, ``spec_for`` replicates it, as JAX does,
-    and every process computes the whole batch.
+    batch; each process takes its rows, split over ``data`` only (the
+    processes of one ``data`` coordinate hold the same rows).  Where the
+    global batch does not divide over ``data``, ``spec_for`` replicates
+    it, as JAX does, and every process computes the whole batch.
 
     * Microbatch i is rows [i·B/m, (i+1)·B/m) of the global batch, as in
       the JAX step, and this process takes its share of it: rows i·B/m +
-      r·B/(m·n) onwards, B/(m·n) of them.  The MoE's capacity is that of
-      the whole microbatch (``models/modules.py``, ``moe_ffn``).
-    * The params are gathered whole for the step (transient).
+      d·B/(m·n) onwards, B/(m·n) of them, at ``data`` coordinate d of n.
+      The MoE's capacity is that of the whole microbatch
+      (``models/modules.py``, ``moe_ffn``).
+    * The params are gathered whole over ``data`` for the step
+      (transient); each stays this process's block over ``model``, and
+      the layers compute on those blocks (``models/modules.py``).
     * The loss of a microbatch is its global masked mean, Σ sum_r / Σ
-      count_r: each process backpropagates sum_r / Σ count_r, so the
-      gradients summed over the processes are the global gradient.
-    * The gradients are summed into this process's blocks
+      count_r over the ``data`` group (the vocabulary-parallel loss gives
+      every ``model`` process the whole sums of its rows): each process
+      backpropagates sum_r / Σ count_r, so the gradients summed over
+      ``data`` are the global gradient.
+    * The gradients are summed over ``data`` into this process's blocks
       (``reduce_tree``), divided by m, and AdamW updates the blocks in
-      place (``apply_updates``: elementwise).
+      place (``apply_updates``: elementwise).  A leaf split over
+      ``model`` has its block's gradient; one that every ``model``
+      process holds whole has the whole gradient, the same on each.
     * ``loss`` and ``grad_norm`` come out whole, equal on every process;
-      ``grad_norm`` counts a replicated leaf once (``global_norm``).
+      ``grad_norm`` counts a leaf replicated over an axis once
+      (``global_norm``).
 
     At one process each collective is a copy, and the step gives the
     bits of the one-process step.  ``tc.grad_compression`` is read by
     nothing, as in the JAX step (ROADMAP F16)."""
-    runtime.check_executable(mesh)
+    runtime.check_executable(mesh, cfg.family)
     model = get_model(cfg)
     (p_spec, _, b_spec), _ = step_specs(cfg, "train", mesh, global_batch,
                                         seq, tc, rules)
     spec_leaves = tree_leaves(p_spec)
-    group = mesh.group
-    n, m = mesh.shape["data"], tc.microbatches
-    split = runtime.data_dim(b_spec["targets"]) == 0
-    if global_batch % (m * n if split else m):
-        raise ValueError(f"a global batch of {global_batch} does not split "
-                         f"into {m} microbatches over {n} processes")
-    rows = global_batch // (m * n) if split else global_batch // m
-    first = runtime.coords(mesh)["data"] * rows if split else 0
+    data, m = mesh.axis_group("data"), tc.microbatches
+    split, rows, first = _batch_rows(b_spec, mesh, global_batch, m)
 
     def part(batch, i):
         at = i * (global_batch // m) + first
@@ -238,16 +265,18 @@ def _sharded_train_step(cfg: ModelConfig, global_batch: int, seq: int,
         leaves = [p.detach().requires_grad_() for p in tree_leaves(full)]
         # the backward pass runs in the scope too: remat runs the forward
         # again there
-        with activation_rules(mesh, rules, group if split else None):
+        with activation_rules(mesh, rules, data if split else None,
+                              mesh.axis_group("model")):
             logits = model.forward(tree_unflatten(full, leaves), batch, cfg)
-            total, count = cross_entropy_terms(logits, batch["targets"])
+            total, count = cross_entropy_terms(logits, batch["targets"],
+                                               vocab_split(cfg))
             if split:
-                count = runtime.all_sum(count, group)
+                count = runtime.all_sum(count, data)
             loss = total / count.clamp(min=1.0)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
         if split:
-            loss = runtime.all_sum(loss, group)
+            loss = runtime.all_sum(loss, data)
         return loss.detach(), grads
 
     def train_step(params, opt_state, batch):
@@ -260,7 +289,7 @@ def _sharded_train_step(cfg: ModelConfig, global_batch: int, seq: int,
         if split:
             grads = runtime.reduce_tree(grads, p_spec, mesh)
         else:
-            grads = tree_map(lambda g, spec: runtime.local_block(g, spec, mesh),
+            grads = tree_map(lambda g, spec: runtime.data_block(g, spec, mesh),
                              grads, p_spec)
         return _update(params, opt_state, loss, tree_leaves(grads), m,
                        lambda g: runtime.global_norm(g, spec_leaves, mesh),
@@ -269,17 +298,49 @@ def _sharded_train_step(cfg: ModelConfig, global_batch: int, seq: int,
     return train_step
 
 
+def _sharded_prefill_step(cfg: ModelConfig, global_batch: int, seq: int,
+                          dev: torch.device, mesh: Mesh, rules: Rules):
+    """The prefill step on a mesh that runs, as ``_sharded_train_step``
+    lays it out: ``params`` are this process's blocks (``step_specs(cfg,
+    "prefill", ...)``), gathered whole over ``data`` for the call, and
+    each process takes its rows of the whole ``batch``.  Returns this
+    process's block of the last token's logits, as the JAX step's
+    ``out_shardings`` lays them out: its rows over ``data``, its
+    vocabulary columns over ``model``."""
+    runtime.check_executable(mesh, cfg.family)
+    model = get_model(cfg)
+    (p_spec, b_spec), _ = step_specs(cfg, "prefill", mesh, global_batch,
+                                     seq, rules=rules)
+    split, rows, first = _batch_rows(b_spec, mesh, global_batch)
+
+    def prefill_step(params, batch):
+        batch = {k: torch.as_tensor(v[first:first + rows], device=dev)
+                 for k, v in batch.items()}
+        with torch.no_grad(), activation_rules(
+                mesh, rules, mesh.axis_group("data") if split else None,
+                mesh.axis_group("model")):
+            full = runtime.gather_tree(params, p_spec, mesh)
+            logits = model.forward(full, batch, cfg)
+        return logits[:, -1, :]
+
+    return prefill_step
+
+
 def build_prefill_step(cfg: ModelConfig, global_batch: int, seq: int,
                        device="cuda", mesh: Optional[Mesh] = None,
                        rules: Optional[Rules] = None):
     """Returns (prefill_step, (params, batch) as meta tensors);
-    ``prefill_step(params, batch)`` gives the last token's logits (B, V)."""
-    _plan_only(mesh, "prefill")
+    ``prefill_step(params, batch)`` gives the last token's logits (B, V).
+    On a mesh that runs, see ``_sharded_prefill_step``."""
     dev = resolve_device(device)
     model = get_model(cfg)
     params_abs = _meta_params(model.specs(cfg), cfg.param_dtype)
     batch_abs = make_batch_abstract(cfg, global_batch, seq)
     batch_abs.pop("targets")
+    if _runs(mesh):
+        return _sharded_prefill_step(cfg, global_batch, seq, dev, mesh,
+                                     rules or default_rules(mesh)), \
+            (params_abs, batch_abs)
 
     def prefill_step(params, batch):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}

@@ -16,13 +16,22 @@ Imports torch, numpy and ``repro_torch`` only.  Jobs:
   mesh's shape, the shapes of this process's params, ``mu`` and ``nu``
   blocks, gathered whole, the params after the last step and, for an MoE,
   the experts each token kept at every routing (``recording_routes``).
+* ``prefill``: the port's ``build_prefill_step`` on the same params,
+  on step 0's batch; writes this process's block of the logits.
 * ``norm``: ``global_norm`` of a tree with a split and a replicated leaf.
-* ``model_axis``: builds the train and prefill steps on a mesh with
-  ``model`` = 2 and records what each raises.
+* ``norm2d``: ``global_norm`` on a (2, 2) mesh of leaves split over
+  ``data``, over ``model``, over both, and over neither.
+* ``model_axis``: builds the train, prefill and decode steps of each of
+  ``archs`` on a mesh with ``model`` = 2 and records what each raises.
 * ``ckpt_save``: one step from the seeded init, then ``save_sharded`` at
   step 1; writes the whole state gathered.
 * ``ckpt_restore``: ``restore_sharded`` into zero blocks; writes the whole
   state gathered.
+* ``seq``: the jobs of ``jobs`` one after another in the same group, the
+  results of each under ``<its name>/``.
+
+A job runs on ``make_host_mesh(model=job["model"])`` (``model`` 1 where
+it names none), one mesh of each shape for the processes' lifetime.
 """
 
 import contextlib
@@ -47,8 +56,9 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import get_model, modules
 from repro_torch.parallel import runtime
 from repro_torch.parallel.sharding import PartitionSpec as P
-from repro_torch.train import (AdamWConfig, TrainConfig, build_prefill_step,
-                               build_train_step, init_state, synthetic_batch)
+from repro_torch.train import (AdamWConfig, TrainConfig, build_decode_step,
+                               build_prefill_step, build_train_step,
+                               init_state, synthetic_batch)
 from repro_torch.train.step import step_specs
 from repro_torch.weights import params_from_numpy_sharded
 
@@ -133,7 +143,7 @@ def state(job, cfg, mesh, tc):
 
 def whole(tree, specs, mesh, prefix):
     return {f"{prefix}/{name}": x.numpy() for name, x in named_leaves(
-        runtime.gather_tree(tree, specs, mesh))}
+        runtime.gather_whole_tree(tree, specs, mesh))}
 
 
 def train(job, mesh, out):
@@ -163,6 +173,30 @@ def train(job, mesh, out):
     out.update(whole(params, specs["params"], mesh, "p"))
 
 
+def prefill(job, mesh, out):
+    cfg = config(job)
+    step, _ = build_prefill_step(cfg, job["batch"], job["seq"], "cpu",
+                                 mesh=mesh)
+    params = state(job, cfg, mesh, TrainConfig())[0]
+    batches = np.load(job["batches"])
+    batch = {k.split("/", 1)[1]: batches[k] for k in batches.files
+             if k.startswith("0/") and not k.endswith("/targets")}
+    out["logits"] = step(params, batch).numpy()
+
+
+def norm2d(job, mesh, out):
+    """Leaves 0..n-1 of shape (4, 4), each a block by its spec: whole
+    arange(16) + 16·i, split over data, over model, over both, over
+    neither."""
+    specs = [P("data"), P(None, "model"), P("data", "model"), P()]
+    at = runtime.coords(mesh)
+    leaves = []
+    for i, spec in enumerate(specs):
+        whole = (torch.arange(16.0) + 16 * i).reshape(4, 4)
+        leaves.append(whole[runtime.local_slice((4, 4), spec, mesh, at)])
+    out["norm"] = float(runtime.global_norm(leaves, specs, mesh))
+
+
 def norm(job, mesh, out):
     rank = dist.get_rank()
     n = dist.get_world_size()
@@ -173,15 +207,17 @@ def norm(job, mesh, out):
 
 
 def model_axis(job, mesh, out):
-    mesh = make_host_mesh(model=2, device="cpu")
     out["mesh"] = np.asarray(mesh.axis_sizes)
-    cfg = config(job)
-    for kind, build in (("train", build_train_step),
-                        ("prefill", build_prefill_step)):
-        try:
-            build(cfg, job["batch"], job["seq"], device="cpu", mesh=mesh)
-        except NotImplementedError as e:
-            out[f"raised/{kind}"] = str(e)
+    for arch in job["archs"]:
+        cfg = get_config(arch, smoke=True)
+        for kind, build in (("train", build_train_step),
+                            ("prefill", build_prefill_step),
+                            ("decode", build_decode_step)):
+            try:
+                build(cfg, job["batch"], job["seq"], device="cpu", mesh=mesh)
+                out[f"raised/{arch}/{kind}"] = ""
+            except NotImplementedError as e:
+                out[f"raised/{arch}/{kind}"] = str(e)
 
 
 def ckpt(job, mesh, out, save):
@@ -208,6 +244,25 @@ def ckpt(job, mesh, out, save):
     out.update(whole(tree, specs, mesh, "s"))
 
 
+JOBS = {"train": train, "prefill": prefill, "norm": norm, "norm2d": norm2d,
+        "model_axis": model_axis,
+        "ckpt_save": lambda job, mesh, out: ckpt(job, mesh, out, True),
+        "ckpt_restore": lambda job, mesh, out: ckpt(job, mesh, out, False)}
+
+
+def run_job(job, out, meshes):
+    if job["kind"] == "seq":
+        for sub in job["jobs"]:
+            res = {}
+            run_job(sub, res, meshes)
+            out.update({f"{sub['name']}/{k}": v for k, v in res.items()})
+        return
+    model = job.get("model", 1)
+    if model not in meshes:
+        meshes[model] = make_host_mesh(model=model, device="cpu")
+    JOBS[job["kind"]](job, meshes[model], out)
+
+
 def main():
     rank, world, store_path, job_path = sys.argv[1:]
     rank, world = int(rank), int(world)
@@ -216,14 +271,8 @@ def main():
     runtime.init_group("cpu", dist.FileStore(store_path, world), rank, world,
                        timeout=timedelta(seconds=90))
     try:
-        mesh = make_host_mesh(device="cpu")
         out = {}
-        kind = job["kind"]
-        if kind in ("ckpt_save", "ckpt_restore"):
-            ckpt(job, mesh, out, kind == "ckpt_save")
-        else:
-            {"train": train, "norm": norm,
-             "model_axis": model_axis}[kind](job, mesh, out)
+        run_job(job, out, {})
         np.savez(f"{job['out']}/rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()

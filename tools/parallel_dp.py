@@ -3,15 +3,21 @@
 machine: the kernels' build, then the train step across processes (one a
 card, NCCL) at full olmo-1b width and the train driver under torchrun.
 
-  python3 tools/parallel_dp.py
+  python3 tools/parallel_dp.py [--model M]
 
 On a host with four cards it runs world 4 (one process a card); on one
-card it is the phase of the full script.  Exits non-zero where the phase
+card it is the phase of the full script.  With ``--model M`` the mesh is
+(cards / M, M): the same olmo-1b steps with tensor parallelism over the
+model axis, then the mesh's full-width prefill (an f32 check against one
+process, and a timed bf16 call) and a granite-moe-3b-a800m training step
+with its experts split (``[parallel tp]`` lines); the train driver, which
+runs the data axis only, is left out.  Exits non-zero where the phase
 fails.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -19,7 +25,11 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", type=int, default=1,
+                    help="the mesh's model axis (it must divide the cards)")
+    args = ap.parse_args(argv)
     import chip_smoke
     if not chip_smoke.torch.cuda.is_available():
         chip_smoke.fail("no CUDA device is available")
@@ -27,8 +37,8 @@ def main() -> int:
     chip_smoke.phase_build()
     card = chip_smoke.sh("nvidia-smi", "--query-gpu=name,power.limit",
                          "--format=csv,noheader").splitlines()[0]
-    paths = chip_smoke.phase_parallel_dp(card)
-    print(f"[parallel dp] paths {paths}; wall with the build "
+    paths = chip_smoke.phase_parallel_dp(card, args.model)
+    print(f"[parallel] paths {paths}; wall with the build "
           f"{time.perf_counter() - t:.3f} s", flush=True)
     return 0
 
