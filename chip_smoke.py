@@ -21,6 +21,9 @@ Phases, in order; any failure exits non-zero:
    profiler, and the route each K4-bwd case took: P = 64 at chunk 64 or
    128 on the tensor-core route, every other shape on the route of
    mma.sync).  The profiler checks that K1 and K2 are one kernel a call.
+   K4 and K4-bwd are also held and timed at one card's heads of a model
+   axis of 4: mamba2-370m's (2, 4096, 8 of 32 heads, P 64, N 128) and
+   jamba's (1, 4096, 32 of 128, P 64, N 16).
 3. Run the serve driver at full olmo-1b width (16 layers, d_model 2048) and
    check its counts and that it went through K1 (once a decode step) and K2
    (once a compaction).
@@ -129,10 +132,29 @@ Phases, in order; any failure exits non-zero:
    norm within 1e-4 and, gathered, its params within the f32 bounds.
    Then the train driver under torchrun at SMOKE size: a crash after step
    5, the resume and an uninterrupted run, with the same losses.
+   Then mamba2-370m at full width (48 layers) through the sharded train
+   step, global batch 2 a card × 4096, remat "full": at one card one step
+   gives the one-process step's bits through the split path of a model
+   axis of 1 (the Mamba-2 heads, ``w_in``'s blocks gathered by
+   ``gather_blocks``, the gated norm's ``psum``: counted on a
+   ``[parallel tp] world 1`` line); with more cards an f32 step at 2
+   layers is held against the f64 one-process step (``dp_f32_check``);
+   4 steps timed by CUDA events with K4 96 and K4-bwd 48 launches a step
+   by the counters and the profiler, and each rank's peak.  Then the
+   decode step across processes (``build_decode_step`` on the mesh: the
+   KV cache split along its sequence, each token's attention merged by
+   log-sum-exp; the Mamba-2 heads' SSM state split): olmo-1b and
+   mamba2-370m at full width, batch 8, cache max_seq 4096, ragged
+   lengths, 4 f32 steps whose gathered logits are held against the
+   one-process decode in f64 within twice the one-process f32 decode's
+   own distance from it, then 16 bf16 steps timed by host wall beside
+   the one-process decode, and one profiled; at one card also jamba cut
+   to 1 of 4 blocks with 2 of 16 experts, in f32.
    ``tools/parallel_dp.py --model M`` runs the phase on a (cards / M, M)
-   mesh, with the mesh's prefill and a granite-moe-3b-a800m step; phase
-   2 holds and times K3 and K3-bwd at one card's heads of a model axis of
-   4 (olmo-1b 4 of 16, granite-moe 6 of 24 over 2).
+   mesh, with the mesh's prefill and a granite-moe-3b-a800m step
+   (``--runs`` picks the parts); phase 2 holds and times K3 and K3-bwd at
+   one card's heads of a model axis of 4 (olmo-1b 4 of 16, granite-moe 6
+   of 24 over 2), and K4 and K4-bwd at mamba2-370m's and jamba's.
 14. Checkpoints (``[checkpoint]``): crash and resume through the train
    driver on the card for olmo-1b and mamba2-370m at SMOKE size (crash
    after step 5 of 8 with a checkpoint every 3 steps, resume, and an
@@ -200,6 +222,13 @@ SERVE_SMOKE = ["--arch", "olmo-1b"]
 EXPECT_SMOKE = ("completed=24/24 decode_steps=62 compaction_steps=12 "
                 "compaction_dmas=360 alloc_failures=0")
 SEED = 0
+# K4 and K4-bwd at one card's heads of a model axis of 4 ([parallel tp]):
+# mamba2-370m's 8 of 32, jamba's 32 of 128
+MAMBA_LOCAL = "mamba2-370m local heads (8 of 32, model axis 4)"
+JAMBA_LOCAL = "jamba-v0.1-52b local heads (32 of 128, model axis 4)"
+# the cases phase 2 times: the first (the record), jamba's and the local
+K4_TIMED = ("jamba-v0.1-52b prefill", "jamba-v0.1-52b training",
+            MAMBA_LOCAL, JAMBA_LOCAL)
 
 
 def fail(msg: str) -> None:
@@ -821,6 +850,10 @@ def phase_ssd_scan():
          False, False),
         ("jamba-v0.1-52b prefill", *PREFILL, 128, 64, 16, 128, (0.1, 0.9),
          False, False),
+        # one card's heads on a model axis of 4 ([parallel tp])
+        (MAMBA_LOCAL, *TRAIN, 8, 64, 128, 128, (0.70, 0.82), False, False),
+        (JAMBA_LOCAL, *JAMBA_TRAIN, 32, 64, 16, 128, (0.1, 0.9), False,
+         False),
         ("mamba2 SMOKE widths", 2, 256, 8, 16, 16, 16, (0.1, 0.9), False,
          False),
         ("initial state", 2, 1024, 32, 64, 128, 128, (0.001, 0.05), True,
@@ -856,7 +889,7 @@ def phase_ssd_scan():
         print(f"[K4] {label} (B,S,H,P,N)=({b},{s},{h},{p},{n}) chunk {chunk}"
               f"{' with initial state' if with_state else ''}: max_abs_err "
               f"{', '.join(errs)} (tol {tol} x |max|)", flush=True)
-        if record is not None and not label.startswith("jamba"):
+        if record is not None and label not in K4_TIMED:
             continue
         want_y = oracles[0][1][0]
         err = float((y - want_y).abs().max())
@@ -982,6 +1015,11 @@ def phase_ssd_scan_bwd():
          None, False, False),
         ("jamba-v0.1-52b training", *JAMBA_TRAIN, 128, 64, 16, 128,
          (0.1, 0.9), None, False, False),
+        # one card's heads on a model axis of 4 ([parallel tp])
+        (MAMBA_LOCAL, *TRAIN, 8, 64, 128, 128, (0.70, 0.82), None, False,
+         False),
+        (JAMBA_LOCAL, *JAMBA_TRAIN, 32, 64, 16, 128, (0.1, 0.9), None,
+         False, False),
         ("mamba2 SMOKE widths", 2, 256, 8, 16, 16, 16, (0.1, 0.9), None,
          True, True),
         ("overflowing decay", 2, 512, 4, 64, 128, 128, (0.70, 0.82), -0.95,
@@ -1040,7 +1078,7 @@ def phase_ssd_scan_bwd():
             fail(f"ssd_scan_bwd {label}: two calls differ")
         if p == 64 and chunk in (64, 128) and not route.startswith("tensor"):
             fail(f"ssd_scan_bwd {label}: took the route of mma.sync")
-        if record is not None and not label.startswith("jamba"):
+        if record is not None and label not in K4_TIMED:
             continue
         del got, again
         torch.cuda.synchronize()
@@ -3090,10 +3128,13 @@ def dp_same_bits(a, b):
             if not torch.equal(x, y)]
 
 
-def dp_bits_check(cfg, mesh, batch):
+def dp_bits_check(cfg, mesh, batch, what, expect):
     """World 1 only: one sharded step from a state and the one-process
     step from a clone of that state give the same bits in the loss, the
-    grad norm and every leaf of params, mu, nu and count."""
+    grad norm and every leaf of params, mu, nu and count.  The sharded
+    step takes the split path of a model axis of 1 (``what`` its leaves,
+    each one block): the operators of ``runtime.counts`` named in
+    ``expect`` must run, and the one-process step must run none."""
     from repro_torch.parallel import runtime
     from repro_torch.train import (AdamWConfig, TrainConfig,
                                    build_train_step, init_state)
@@ -3113,29 +3154,28 @@ def dp_bits_check(cfg, mesh, batch):
     split = dict(runtime.counts)
     p2, o2, m2 = one(twin, init_state(twin, tc.adamw), batch)
     torch.cuda.synchronize()
-    print(f"[parallel tp] world 1: the sharded step on {mesh.shape} took the "
-          f"split path (heads, FFN columns, vocabulary and embedding rows "
-          f"each one block over the model axis): to_model "
-          f"{split['to_model']}, from_model {split['from_model']}, "
-          f"vocabulary-parallel losses {split['vocab_loss']} in one step "
-          f"(remat \"full\" runs each layer's forward twice); the "
-          f"one-process step none", flush=True)
-    if min(split.values()) == 0 or runtime.counts != split:
-        fail(f"parallel tp: the world-1 sharded step counted {split}; with "
-             f"the one-process step {dict(runtime.counts)}")
+    print(f"[parallel tp] world 1: the sharded {cfg.name} step on "
+          f"{mesh.shape} took the split path ({what} each one block over "
+          f"the model axis): " + ", ".join(f"{k} {v}"
+                                           for k, v in split.items())
+          + " in one step (remat \"full\" runs each layer's forward twice);"
+          " the one-process step none", flush=True)
+    if any(split[k] == 0 for k in expect) or runtime.counts != split:
+        fail(f"parallel tp: the world-1 sharded {cfg.name} step counted "
+             f"{split}; with the one-process step {dict(runtime.counts)}")
     differ = dp_same_bits({"params": p1, "opt": o1, "metrics": m1},
                           {"params": p2, "opt": o2, "metrics": m2})
-    print(f"[parallel dp] world 1: one sharded step from a state and the "
-          f"one-process step from a clone of it: loss {float(m1['loss']):.6f}"
-          f" / {float(m2['loss']):.6f}, grad_norm "
+    print(f"[parallel dp] world 1: one sharded {cfg.name} step from a state "
+          f"and the one-process step from a clone of it: loss "
+          f"{float(m1['loss']):.6f} / {float(m2['loss']):.6f}, grad_norm "
           f"{float(m1['grad_norm']):.6f} / {float(m2['grad_norm']):.6f}; "
           f"the same bits in the loss, the grad norm and every leaf of "
           f"params, mu, nu and count: {not differ}"
           + (f"; {len(differ)} differ, the first {differ[0]}" if differ
              else ""), flush=True)
     if differ:
-        fail(f"parallel dp: the world-1 sharded step differs from the "
-             f"one-process step in {[d[0] for d in differ]}")
+        fail(f"parallel dp: the world-1 sharded {cfg.name} step differs "
+             f"from the one-process step in {[d[0] for d in differ]}")
 
 
 def dp_param_diffs(a, b):
@@ -3161,10 +3201,11 @@ def verdict(ok, root=0):
     return flag[0]
 
 
-def dp_f32_check(mesh, tag):
-    """More than one process only: one f32 step of olmo-1b cut to
-    DP_CHECK's layers at global batch 2 a ``data`` coordinate, sharded over
-    the mesh, against the one-process step on the whole batch on rank 0.
+def dp_f32_check(mesh, tag, arch="olmo-1b"):
+    """More than one process only: one f32 step of ``arch`` (olmo-1b or
+    mamba2-370m) cut to DP_CHECK's layers at global batch 2 a ``data``
+    coordinate, sharded over the mesh, against the one-process step on the
+    whole batch on rank 0.
     The loss is held to twice the f32 spread the same step shows between
     the whole batch and k microbatches (the same sums in another order; k
     the ``data`` size, or 2), and at least 1e-5 relative.  On a mesh
@@ -3173,10 +3214,11 @@ def dp_f32_check(mesh, tag):
     relative; the params after the step, gathered whole, to
     tests/test_torch_train.py's f32 bounds for one step: 2·lr at the worst
     element and 1e-5 at all but a 1e-3 share.  With a model axis the split
-    reorders sums inside every layer (over heads, FFN columns and the
-    vocabulary), and the f32 step at this width is ill conditioned (ROADMAP
-    F7, F18): so the grad norm and the params are held against the same
-    step in f64 on one process (naive attention: K3 has no f64), to at
+    reorders sums inside every layer (over heads, FFN columns, Mamba-2
+    heads and the vocabulary), and the f32 step at this width is ill
+    conditioned (ROADMAP F7, F18): so the grad norm and the params are held
+    against the same step in f64 on one process (naive attention and the
+    plain SSD scan: K3 and K4 have no f64), to at
     most twice the one-process f32 step's own distance from it (and at
     least the bounds above; the worst element to 2·lr and the f32
     rounding of a param, 1e-6).  The same step's f32 spread in the params,
@@ -3185,6 +3227,7 @@ def dp_f32_check(mesh, tag):
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
     from repro_torch.train import (AdamWConfig, TrainConfig,
                                    build_train_step, init_state,
                                    synthetic_batch)
@@ -3192,7 +3235,7 @@ def dp_f32_check(mesh, tag):
     from repro_torch.parallel.sharding import tree_map
     from repro_torch.train.step import step_specs
     layers, seq = DP_CHECK
-    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=layers,
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                               compute_dtype=torch.float32,
                               attn_impl="chunked", remat="full")
     n, split = mesh.shape["data"], mesh.shape["model"] > 1
@@ -3213,11 +3256,17 @@ def dp_f32_check(mesh, tag):
             runs.append((1, dataclasses.replace(
                 cfg, compute_dtype=torch.float64, param_dtype=torch.float64,
                 attn_impl="naive")))
+        kernel_ssd = ops.ssd
         for mb, c in runs:
             tcm = TrainConfig(microbatches=mb, adamw=tc.adamw)
             one, _ = build_train_step(c, b, seq, tcm)
             p = tree_map(lambda x: x.to(c.param_dtype), full_params(cfg))
-            p, _, m1 = one(p, init_state(p, tc.adamw), batch)
+            if c.compute_dtype == torch.float64:
+                ops.ssd = ref.ssd_chunked_ref
+            try:
+                p, _, m1 = one(p, init_state(p, tc.adamw), batch)
+            finally:
+                ops.ssd = kernel_ssd
             got.append((float(m1["loss"]), float(m1["grad_norm"])))
             ps.append(p)
         spread = abs(got[0][0] - got[1][0])
@@ -3235,7 +3284,8 @@ def dp_f32_check(mesh, tag):
             # an element whose gradient's sign differs moves 2·lr apart,
             # and an f32 param lies up to its rounding from its f64 twin
             worst_bound = 2 * tc.adamw.lr + 1e-6
-            against = (f"the one-process f64 step (naive attention): "
+            against = (f"the one-process f64 step (naive attention, "
+                       f"plain scan): "
                        f"grad_norm {ref_norm:.6f}, the one-process f32 step "
                        f"{got[0][1]:.6f} (|diff| "
                        f"{abs(got[0][1] - ref_norm):.3g}, params max |diff| "
@@ -3247,7 +3297,7 @@ def dp_f32_check(mesh, tag):
             worst_bound = 2 * tc.adamw.lr
             against = f"one process {ref_norm:.6f}"
         del ps
-        print(f"{tag} f32 check, olmo-1b {layers} layers, batch {b} "
+        print(f"{tag} f32 check, {cfg.name} {layers} layers, batch {b} "
               f"seq {seq}: loss on {mesh.shape} {loss:.7f}, one "
               f"process {got[0][0]:.7f} (|diff| {abs(loss - got[0][0]):.3g};"
               f" the f32 spread of one process's whole batch against "
@@ -3405,23 +3455,466 @@ def tp_granite_step(mesh, tag):
     dist.barrier()
 
 
-def dp_worker(rank, world, store_path, model=1):
-    """One process of the [parallel dp] group, on card ``rank``: olmo-1b
-    at full width through the sharded train step on a (world / model,
-    model) mesh (rank 0 prints); with a model axis, also the mesh's
-    prefill and a granite-moe-3b-a800m training step."""
-    from datetime import timedelta
+MAMBA = "mamba2-370m"
+# the sharded decode: (batch, cache max_seq, steps checked in f32, steps
+# timed in bf16) and each row's length at the first step: rows whose whole
+# sequence lies in the first of 4 blocks of 1024 and rows in each other
+TP_DECODE = (8, 4096, 4, 16)
+TP_LENGTHS = (0, 7, 700, 1023, 1024, 2500, 3071, 4000)
 
+
+def tp_mamba_step(mesh, tag):
+    """mamba2-370m at full width (48 layers) through the sharded train step,
+    global batch 2 a data coordinate, seq 4096, remat "full", bf16 compute:
+    at world 1 one step from a state against the one-process step from a
+    clone of it (the same bits, through the split path of a model axis of
+    1: the Mamba-2 heads, ``w_in``'s blocks gathered by ``gather_blocks``,
+    the gated norm's ``psum``); with more processes one f32 step at 2
+    layers against the f64 one-process step (``dp_f32_check``).  Then
+    TRAIN_STEPS steps timed by CUDA events, K4 96 and K4-bwd 48 launches a
+    step on every rank by the counters and by a profiled step, and each
+    rank's peak memory.  Returns the timed steps' launches."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.parallel import runtime
     from repro_torch.train import (AdamWConfig, TrainConfig,
                                    build_train_step, init_state,
                                    synthetic_batch)
     from repro_torch.train.step import step_specs
+    world = dist.get_world_size()
+    cfg = dataclasses.replace(get_config(MAMBA), remat="full")
+    b, n = 2 * mesh.shape["data"], cfg.n_layers
+    batches = [synthetic_batch(cfg, i, b, DP_SEQ)
+               for i in range(TRAIN_STEPS + 1)]
+    if world == 1:
+        dp_bits_check(cfg, mesh, batches[0], "Mamba-2 heads, w_in's "
+                      "columns, d_inner, vocabulary and embedding rows",
+                      ("to_model", "from_model", "vocab_loss",
+                       "gather_blocks", "psum"))
+    else:
+        dp_f32_check(mesh, tag, MAMBA)
+    torch.cuda.empty_cache()
+    tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
+    step, _ = build_train_step(cfg, b, DP_SEQ, tc, mesh=mesh)
+    (p_spec, _, _), _ = step_specs(cfg, "train", mesh, b, DP_SEQ, tc)
+    params = runtime.shard_tree(full_params(cfg), p_spec, mesh)
+    opt = init_state(params, tc.adamw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # The path: counts set to 0 just before, read just after.
+    ss.launches = ss.bwd_launches = 0
+    times, want = [], (2 * n, n)
+    for i in range(TRAIN_STEPS):
+        before = (ss.launches, ss.bwd_launches)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        params, opt, m = step(params, opt, batches[i])
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+        got = (ss.launches - before[0], ss.bwd_launches - before[1])
+        each = [None] * world
+        dist.all_gather_object(each, got)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        if dist.get_rank() == 0:
+            print(f"{tag} {MAMBA} sharded train on {mesh.shape}, global "
+                  f"batch {b} seq {DP_SEQ} step {i}: loss={loss:.6f} "
+                  f"grad_norm={norm:.6f}; {times[-1]:.3f} ms by CUDA "
+                  f"events; launches (ssd_scan, ssd_scan_bwd) on each rank "
+                  f"{each}", flush=True)
+        if set(each) != {want} or not (np.isfinite(loss)
+                                       and np.isfinite(norm)):
+            fail(f"{tag}: {MAMBA} step {i} launched {each} for {want}, "
+                 f"loss {loss}, grad_norm {norm}")
+    totals = (ss.launches, ss.bwd_launches)
+    peaks = [None] * world
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated() / 2**30)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batches[TRAIN_STEPS])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = device_time_by_name(prof)
+    k4 = sum(c for name, (_, c) in by_name.items()
+             if "ssd_scan_chunk_state" in name)
+    k4b = sum(c for name, (_, c) in by_name.items()
+              if "ssd_bwd_dstate" in name)
+    busy = sum(us for us, _ in by_name.values()) / 1e3
+    comm = [0.0, 0]
+    for name, (us, c) in by_name.items():
+        if name.startswith("Memcpy DtoD") or "nccl" in name.lower():
+            comm = [comm[0] + us / 1e3, comm[1] + c]
+    counted = [None] * world
+    dist.all_gather_object(counted, (k4, k4b))
+    if dist.get_rank() == 0:
+        print(f"{tag} {MAMBA} sharded train on {mesh.shape}: {TRAIN_STEPS} "
+              f"steps, median of steps 2-{TRAIN_STEPS} "
+              f"{float(np.median(times[1:])):.3f} ms (" + ", ".join(
+                  f"{t:.3f}" for t in times[1:]) + "); peak device memory "
+              "a rank " + ", ".join(f"{p:.2f}" for p in peaks) + " GiB; "
+              f"launches ssd_scan={totals[0]} ssd_scan_bwd={totals[1]}; "
+              f"the profiler's step on rank 0: {wall:.3f} ms host wall, "
+              f"device busy {busy:.3f} ms, NCCL kernels and "
+              f"device-to-device copies {comm[0]:.3f} ms in {comm[1]}; "
+              f"(ssd_scan chunk-state, ssd_scan_bwd dstate) kernels on "
+              f"each rank {counted}", flush=True)
+    if set(counted) != {want}:
+        fail(f"{tag}: the profiler found {counted} K4 and K4-bwd kernels "
+             f"in a {MAMBA} step, for {want}")
+    del params, opt
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return totals
+
+
+def random_cache(cfg, b, max_seq):
+    """A whole decode cache of normal values from a fixed seed (the same
+    values on every process and every call), each part in the dtype the
+    model's ``init_cache`` gives it (the SSM state stays f32 in f64
+    compute: the model computes it in f32)."""
+    from repro_torch.models import get_model
+    from repro_torch.parallel.sharding import tree_map
+    gen = torch.Generator("cuda").manual_seed(SEED + 11)
+    model = get_model(cfg)
+    cache = (model.init_cache(cfg, b) if cfg.family == "ssm"
+             else model.init_cache(cfg, b, max_seq))
+    return tree_map(lambda x: torch.randn(x.shape, generator=gen,
+                                          device="cuda").to(x.dtype), cache)
+
+
+def decode_tokens(cfg, b, steps):
+    gen = torch.Generator("cuda").manual_seed(SEED + 12)
+    return [torch.randint(0, cfg.vocab, (b, 1), generator=gen,
+                          device="cuda", dtype=torch.int32)
+            for _ in range(steps)]
+
+
+def tp_decode_check(cfg, mesh, tag, params, note=""):
+    """The sharded decode step at full width in f32 (TP_DECODE's batch and
+    cache, TP_LENGTHS, its f32 steps) from a cache of normal values, each
+    step's logits gathered whole, against the one-process decode from the
+    same cache in f32 and in f64 on rank 0 (f64 params and cache; decode
+    runs no kernel).  The merge over the cache's blocks and the split
+    heads reorder f32 sums, so the mesh's logits are held to the f64
+    decode within twice the one-process f32 decode's own distance from it
+    (the tolerance measured in this run), and at least 1e-5 of the largest
+    |logit|.  ``params`` are the whole f32 params on every process."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import runtime
+    from repro_torch.parallel.sharding import tree_map
+    from repro_torch.train import build_decode_step, init_cache_blocks
+    from repro_torch.train.step import step_specs
+    b, max_seq, steps, _ = TP_DECODE
+    world = dist.get_world_size()
+    lengths = np.asarray(TP_LENGTHS, np.int32)
+    tokens = decode_tokens(cfg, b, steps)
+    (p_spec, c_spec, _, _), (l_spec, _) = step_specs(cfg, "decode", mesh, b,
+                                                     max_seq)
+    # at world 1 a block is the whole tensor: no second copy of the params
+    blocks = params if world == 1 else runtime.shard_tree(params, p_spec,
+                                                          mesh)
+    cache = init_cache_blocks(cfg, b, max_seq, mesh)
+    with torch.no_grad():
+        whole = random_cache(cfg, b, max_seq)
+        if isinstance(cache, dict):
+            for k in cache:
+                cache[k].copy_(runtime.local_block(whole[k], c_spec[k],
+                                                   mesh))
+        else:
+            cache.copy_(runtime.local_block(whole, c_spec, mesh))
+        del whole
+    step, _ = build_decode_step(cfg, b, max_seq, mesh=mesh)
+    runtime.reset_counts()
+    got = []
+    for t in range(steps):
+        logits, cache = step(blocks, cache, lengths + t, tokens[t])
+        got.append(runtime.gather_whole_tree(logits, l_spec, mesh))
+    counts = dict(runtime.counts)
+    del cache, blocks
+    got = torch.stack(got)
+    ok = True
+    if dist.get_rank() == 0:
+        res = []
+        for dt in (torch.float32, torch.float64):
+            c = dataclasses.replace(cfg, compute_dtype=dt, param_dtype=dt)
+            p = params if dt == torch.float32 else tree_map(
+                lambda x: x.double(), params)
+            one, _ = build_decode_step(c, b, max_seq)
+            state = random_cache(c, b, max_seq)
+            out = []
+            for t in range(steps):
+                logits, state = one(p, state, lengths + t, tokens[t])
+                out.append(logits.double())
+            res.append(torch.stack(out))
+            del p, state
+            torch.cuda.empty_cache()
+        one32, ref = res
+        scale = float(ref.abs().max())
+        err = float((got.double() - ref).abs().max())
+        own = float((one32 - ref).abs().max())
+        bound = max(1e-5 * scale, 2 * own)
+        print(f"{tag} decode f32 check, {cfg.name}{note} batch {b}, cache "
+              f"max_seq {max_seq}, lengths {list(TP_LENGTHS)} + t, {steps} "
+              f"steps on {mesh.shape}: the blocks' logits gathered against "
+              f"the one-process f64 decode: max |diff| {err:.3g}; the "
+              f"one-process f32 decode's {own:.3g}, and the blocks' against "
+              f"it {float((got.double() - one32).abs().max()):.3g} (bound "
+              f"{bound:.3g}: twice the one-process f32 decode's, at least "
+              f"1e-5 of the largest |logit| {scale:.4g}); operators "
+              + ", ".join(f"{k} {v}" for k, v in counts.items() if v),
+              flush=True)
+        ok = err <= bound and bool(torch.isfinite(got).all()) \
+            and counts["seq_merge" if cfg.family != "ssm" else "psum"] > 0
+        del res, one32, ref
+    del got
+    torch.cuda.empty_cache()
+    if not verdict(ok):
+        fail(f"{tag}: the sharded {cfg.name} decode differs from one "
+             f"process's")
+
+
+def tp_decode_timed(cfg, mesh, tag, params):
+    """The sharded decode step at full width in bf16 (TP_DECODE's batch,
+    cache and timed steps, TP_LENGTHS), each step's host wall after one
+    warm-up step, as ``phase_decode_transformer`` times it; one more step
+    under the profiler (device busy, the largest kernels); and on rank 0
+    the one-process decode of the same batch and cache, timed the same
+    way."""
+    import torch.distributed as dist
+
+    from repro_torch.models import get_model
+    from repro_torch.parallel import runtime
+    from repro_torch.train import build_decode_step, init_cache_blocks
+    from repro_torch.train.step import step_specs
+    b, max_seq, _, steps = TP_DECODE
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    world = dist.get_world_size()
+    (p_spec, _, _, _), _ = step_specs(cfg, "decode", mesh, b, max_seq)
+    blocks = params if world == 1 else runtime.shard_tree(params, p_spec,
+                                                          mesh)
+    cache = init_cache_blocks(cfg, b, max_seq, mesh)
+    lengths = np.asarray(TP_LENGTHS, np.int32)
+    tokens = decode_tokens(cfg, b, steps + 1)
+    step, _ = build_decode_step(cfg, b, max_seq, mesh=mesh)
+    for t in range(steps + 1):
+        if t == 1:                # the first step warms up; time the rest
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        logits, cache = step(blocks, cache, lengths + t, tokens[t])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    walls = [None] * world
+    dist.all_gather_object(walls, wall)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(blocks, cache, lengths + steps + 1, tokens[0])
+        torch.cuda.synchronize()
+        one = (time.perf_counter() - t0) * 1e3
+    by_name = device_time_by_name(prof)
+    busy = sum(us for us, _ in by_name.values()) / 1e3
+    if dist.get_rank() == 0:
+        print(f"{tag} decode bf16 {cfg.name} batch {b}, cache max_seq "
+              f"{max_seq} on {mesh.shape}: "
+              + ", ".join(f"{w:.3f}" for w in walls)
+              + f" ms a step on each rank over steps 2-{steps + 1} (host "
+              f"wall); logits block {tuple(logits.shape)}; the profiler's "
+              f"step on rank 0: {one:.3f} ms host wall, device busy "
+              f"{busy:.3f} ms in {sum(n for _, n in by_name.values())} "
+              f"kernels, the most:", flush=True)
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+        for name, (us, n) in ranked[:8]:
+            print(f"{tag}   {us / 1e3:9.3f} ms {n:5d}x {name[:90]}",
+                  flush=True)
+        # the one-process decode on the same card, whole params and cache
+        one, _ = build_decode_step(cfg, b, max_seq)
+        state = get_model(cfg).init_cache(
+            cfg, b, **({} if cfg.family == "ssm" else {"max_seq": max_seq}))
+        for t in range(steps + 1):
+            if t == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            _, state = one(params, state, lengths + t, tokens[t])
+        torch.cuda.synchronize()
+        print(f"{tag} decode bf16 {cfg.name}: the one-process decode on "
+              f"rank 0's card, the same batch and cache, "
+              f"{(time.perf_counter() - t0) * 1e3 / steps:.3f} ms a step "
+              f"over steps 2-{steps + 1} (host wall)", flush=True)
+        del state
+    dist.barrier()
+    if not bool(torch.isfinite(logits.float()).all()):
+        fail(f"{tag}: the bf16 {cfg.name} decode gave non-finite logits")
+    del blocks, cache
+    torch.cuda.empty_cache()
+
+
+def tp_decode(mesh, tag):
+    """The decode step across processes at full width: olmo-1b (the KV
+    cache split along its sequence, merged by log-sum-exp) and
+    mamba2-370m (the heads' SSM state split, the conv window whole), each
+    in f32 against one process and timed in bf16; at world 1 also jamba
+    cut to 1 of its 4 blocks with 2 of its 16 experts (the world-1 step
+    gathers a second copy of the params over ``data``; all 16 do not fit
+    twice), in f32."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    t = time.perf_counter()
+    for arch in ("olmo-1b", MAMBA):
+        cfg = dataclasses.replace(get_config(arch),
+                                  compute_dtype=torch.float32)
+        params = full_params(cfg)
+        tp_decode_check(cfg, mesh, tag, params)
+        tp_decode_timed(cfg, mesh, tag, params)
+        del params
+        torch.cuda.empty_cache()
+    if dist.get_world_size() == 1:
+        cfg = jamba_cfg(n_experts=2, compute_dtype=torch.float32)
+        params = full_params(cfg)
+        tp_decode_check(cfg, mesh, tag, params,
+                        f" ({JAMBA_BLOCKS} of 4 blocks, 2 of 16 experts)")
+        del params
+        torch.cuda.empty_cache()
+    if dist.get_rank() == 0:
+        print(f"{tag} decode phase wall {time.perf_counter() - t:.3f} s",
+              flush=True)
+    dist.barrier()
+
+
+def dp_olmo(mesh, tag):
+    """olmo-1b at full width through the sharded train step, global batch
+    2 a data coordinate, seq 4096, remat "full": at world 1 the bits check
+    (``dp_bits_check``), with more processes ``dp_f32_check``; then
+    TRAIN_STEPS steps timed by CUDA events with their launches on every
+    rank (K3 32 and K3-bwd 16 a step), each rank's peak memory and a
+    profiled step (K3 and K3-bwd kernels, NCCL kernels by collective,
+    device-to-device copies).  Returns the timed steps' launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.parallel import runtime
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   build_train_step, init_state,
+                                   synthetic_batch)
+    from repro_torch.train.step import step_specs
+    world = dist.get_world_size()
+    say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
+    cfg = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked",
+                              remat="full")
+    b, n = 2 * mesh.shape["data"], cfg.n_layers
+    batches = [synthetic_batch(cfg, i, b, DP_SEQ)
+               for i in range(TRAIN_STEPS + 1)]
+    if world == 1:
+        dp_bits_check(cfg, mesh, batches[0], "heads, FFN columns, "
+                      "vocabulary and embedding rows",
+                      ("to_model", "from_model", "vocab_loss"))
+    else:
+        dp_f32_check(mesh, tag)
+    torch.cuda.empty_cache()
+    tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
+    step, _ = build_train_step(cfg, b, DP_SEQ, tc, mesh=mesh)
+    (p_spec, _, _), _ = step_specs(cfg, "train", mesh, b, DP_SEQ, tc)
+    params = runtime.shard_tree(full_params(cfg), p_spec, mesh)
+    opt = init_state(params, tc.adamw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # The path: counts set to 0 just before, read just after.
+    reset_counts()
+    times, want = [], (2 * n, n)
+    for i in range(TRAIN_STEPS):
+        before = (fa.launches, fa.bwd_launches)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        params, opt, m = step(params, opt, batches[i])
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+        got = (fa.launches - before[0], fa.bwd_launches - before[1])
+        each = [None] * world
+        dist.all_gather_object(each, got)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        say(f"{tag} olmo-1b global batch {b} seq {DP_SEQ} step "
+            f"{i}: loss={loss:.6f} grad_norm={norm:.6f}; "
+            f"{times[-1]:.3f} ms by CUDA events; launches "
+            f"(flash_attention, flash_attention_bwd) on each rank "
+            f"{each}", flush=True)
+        if set(each) != {want} or not (np.isfinite(loss)
+                                       and np.isfinite(norm)):
+            fail(f"{tag}: step {i} launched {each} for {want}, "
+                 f"loss {loss}, grad_norm {norm}")
+    totals = (fa.launches, fa.bwd_launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    peaks = [None] * world
+    dist.all_gather_object(peaks, peak)
+    say(f"{tag} {TRAIN_STEPS} steps, median of steps 2-"
+        f"{TRAIN_STEPS} {float(np.median(times[1:])):.3f} ms ("
+        + ", ".join(f"{t:.3f}" for t in times[1:]) + "); peak device "
+        "memory a rank " + ", ".join(f"{p:.2f}" for p in peaks)
+        + f" GiB; launches flash_attention={totals[0]} "
+        f"flash_attention_bwd={totals[1]}", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batches[TRAIN_STEPS])
+        torch.cuda.synchronize()
+    by_name = device_time_by_name(prof)
+    k3 = sum(c for name, (_, c) in by_name.items()
+             if "flash_attention" in name and "bwd" not in name)
+    dq = sum(c for name, (_, c) in by_name.items()
+             if "flash_attention_bwd_dq" in name)
+    busy = sum(us for us, _ in by_name.values()) / 1e3
+    nccl, copies = {}, [0.0, 0]
+    for name, (us, c) in by_name.items():
+        if name.startswith("Memcpy DtoD"):
+            copies = [copies[0] + us / 1e3, copies[1] + c]
+        for key, part in NCCL_PARTS:
+            if "nccl" in name.lower() and key.lower() in name.lower():
+                ms, k = nccl.get(part, (0.0, 0))
+                nccl[part] = (ms + us / 1e3, k + c)
+    counted = [None] * world
+    dist.all_gather_object(counted, (k3, dq))
+    say(f"{tag} the profiler's step: device busy {busy:.3f} ms; "
+        f"(flash_attention, flash_attention_bwd dq) kernels on each "
+        f"rank {counted}; NCCL kernels " + (", ".join(
+            f"{part} {ms:.3f} ms in {k}"
+            for part, (ms, k) in sorted(nccl.items())) or "none")
+        + f"; device-to-device copies {copies[0]:.3f} ms in {copies[1]}"
+        + (" (a communicator of one rank copies rather than launch a "
+           "kernel)" if world == 1 and not nccl else ""), flush=True)
+    if set(counted) != {want} or not verdict(world == 1 or nccl):
+        fail(f"{tag}: the profiler found {counted} K3 and K3-bwd and "
+             f"NCCL {nccl} in a step, for {want} and NCCL kernels")
+    del params, opt
+    torch.cuda.empty_cache()
+    return totals
+
+
+# the runs of the [parallel dp] phase (``tools/parallel_dp.py --runs``):
+# prefill and granite run on a model axis above 1 only, the train driver
+# on a model axis of 1 only
+DP_RUNS = ("olmo", "mamba", "decode", "prefill", "granite", "driver")
+
+
+def dp_worker(rank, world, store_path, model=1, runs=DP_RUNS):
+    """One process of the [parallel dp] group, on card ``rank``, on a
+    (world / model, model) mesh (rank 0 prints): of ``runs``, olmo-1b's
+    and mamba2-370m's sharded train steps (``dp_olmo``,
+    ``tp_mamba_step``), the sharded decode (``tp_decode``) and, with a
+    model axis, the mesh's prefill and a granite-moe-3b-a800m training
+    step."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import runtime
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # a rank that fails leaves the others in a collective: NCCL's watchdog
@@ -3434,93 +3927,16 @@ def dp_worker(rank, world, store_path, model=1):
         mesh = make_host_mesh(model=model)
         say(f"{tag} {world} process(es), NCCL, one card each: host "
             f"mesh {mesh.shape}", flush=True)
-        cfg = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked",
-                                  remat="full")
-        b, n = 2 * mesh.shape["data"], cfg.n_layers
-        batches = [synthetic_batch(cfg, i, b, DP_SEQ)
-                   for i in range(TRAIN_STEPS + 1)]
-        if world == 1:
-            dp_bits_check(cfg, mesh, batches[0])
-        else:
-            dp_f32_check(mesh, tag)
-        torch.cuda.empty_cache()
-        tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
-        step, _ = build_train_step(cfg, b, DP_SEQ, tc, mesh=mesh)
-        (p_spec, _, _), _ = step_specs(cfg, "train", mesh, b, DP_SEQ, tc)
-        params = runtime.shard_tree(full_params(cfg), p_spec, mesh)
-        opt = init_state(params, tc.adamw)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        # The path: counts set to 0 just before, read just after.
-        reset_counts()
-        times, want = [], (2 * n, n)
-        for i in range(TRAIN_STEPS):
-            before = (fa.launches, fa.bwd_launches)
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            e0.record()
-            params, opt, m = step(params, opt, batches[i])
-            e1.record()
-            torch.cuda.synchronize()
-            times.append(e0.elapsed_time(e1))
-            got = (fa.launches - before[0], fa.bwd_launches - before[1])
-            each = [None] * world
-            dist.all_gather_object(each, got)
-            loss, norm = float(m["loss"]), float(m["grad_norm"])
-            say(f"{tag} olmo-1b global batch {b} seq {DP_SEQ} step "
-                f"{i}: loss={loss:.6f} grad_norm={norm:.6f}; "
-                f"{times[-1]:.3f} ms by CUDA events; launches "
-                f"(flash_attention, flash_attention_bwd) on each rank "
-                f"{each}", flush=True)
-            if set(each) != {want} or not (np.isfinite(loss)
-                                           and np.isfinite(norm)):
-                fail(f"{tag}: step {i} launched {each} for {want}, "
-                     f"loss {loss}, grad_norm {norm}")
-        totals = (fa.launches, fa.bwd_launches)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        peaks = [None] * world
-        dist.all_gather_object(peaks, peak)
-        say(f"{tag} {TRAIN_STEPS} steps, median of steps 2-"
-            f"{TRAIN_STEPS} {float(np.median(times[1:])):.3f} ms ("
-            + ", ".join(f"{t:.3f}" for t in times[1:]) + "); peak device "
-            "memory a rank " + ", ".join(f"{p:.2f}" for p in peaks)
-            + f" GiB; launches flash_attention={totals[0]} "
-            f"flash_attention_bwd={totals[1]}", flush=True)
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            step(params, opt, batches[TRAIN_STEPS])
-            torch.cuda.synchronize()
-        by_name = device_time_by_name(prof)
-        k3 = sum(c for name, (_, c) in by_name.items()
-                 if "flash_attention" in name and "bwd" not in name)
-        dq = sum(c for name, (_, c) in by_name.items()
-                 if "flash_attention_bwd_dq" in name)
-        busy = sum(us for us, _ in by_name.values()) / 1e3
-        nccl, copies = {}, [0.0, 0]
-        for name, (us, c) in by_name.items():
-            if name.startswith("Memcpy DtoD"):
-                copies = [copies[0] + us / 1e3, copies[1] + c]
-            for key, part in NCCL_PARTS:
-                if "nccl" in name.lower() and key.lower() in name.lower():
-                    ms, k = nccl.get(part, (0.0, 0))
-                    nccl[part] = (ms + us / 1e3, k + c)
-        counted = [None] * world
-        dist.all_gather_object(counted, (k3, dq))
-        say(f"{tag} the profiler's step: device busy {busy:.3f} ms; "
-            f"(flash_attention, flash_attention_bwd dq) kernels on each "
-            f"rank {counted}; NCCL kernels " + (", ".join(
-                f"{part} {ms:.3f} ms in {k}"
-                for part, (ms, k) in sorted(nccl.items())) or "none")
-            + f"; device-to-device copies {copies[0]:.3f} ms in {copies[1]}"
-            + (" (a communicator of one rank copies rather than launch a "
-               "kernel)" if world == 1 and not nccl else ""), flush=True)
-        if set(counted) != {want} or not verdict(world == 1 or nccl):
-            fail(f"{tag}: the profiler found {counted} K3 and K3-bwd and "
-                 f"NCCL {nccl} in a step, for {want} and NCCL kernels")
-        del params, opt
-        torch.cuda.empty_cache()
-        if model > 1:
+        totals = {}
+        if "olmo" in runs:
+            totals["olmo"] = dp_olmo(mesh, tag)
+        if "mamba" in runs:
+            totals["mamba"] = tp_mamba_step(mesh, tag)
+        if "decode" in runs:
+            tp_decode(mesh, tag)
+        if model > 1 and "prefill" in runs:
             tp_prefill(mesh, tag)
+        if model > 1 and "granite" in runs:
             tp_granite_step(mesh, tag)
         if rank == 0:
             with open(os.path.join(os.path.dirname(store_path),
@@ -3553,7 +3969,7 @@ def dp_finish(proc, timeout=300):
     return proc.returncode, out.strip().splitlines(), err
 
 
-def phase_parallel_dp(card, model=1):
+def phase_parallel_dp(card, model=1, runs=DP_RUNS):
     """[parallel dp]: the train step across processes on the mesh's data
     axis, one process a card in an NCCL group (spawned: the parent has
     CUDA up), at full olmo-1b width, global batch 2 a card, seq 4096,
@@ -3570,7 +3986,11 @@ def phase_parallel_dp(card, model=1):
     global batch 2 a data coordinate, and the phase adds the mesh's
     full-width prefill (``tp_prefill``) and a granite-moe-3b-a800m
     training step (``tp_granite_step``); the train driver, which runs the
-    data axis, is not run.  Returns {path: {kernel: launches}}."""
+    data axis, is not run.  On either mesh the phase also runs mamba2-370m's
+    sharded train step (``tp_mamba_step``) and the sharded decode of
+    olmo-1b and mamba2-370m, and at world 1 of jamba (``tp_decode``).
+    ``runs`` picks among them (DP_RUNS).  Returns {path: {kernel:
+    launches}}."""
     import multiprocessing
     t = time.perf_counter()
     world = torch.cuda.device_count()
@@ -3590,7 +4010,7 @@ def phase_parallel_dp(card, model=1):
     with tempfile.TemporaryDirectory(prefix="dp_") as tmp:
         procs = [ctx.Process(target=dp_worker,
                              args=(r, world, os.path.join(tmp, "store"),
-                                   model))
+                                   model, runs))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -3607,13 +4027,15 @@ def phase_parallel_dp(card, model=1):
             fail(f"{tag}: the workers exited {codes}")
         with open(os.path.join(tmp, "totals.json")) as f:
             totals = json.load(f)
-        if model == 1:
+        if model == 1 and "driver" in runs:
             dp_driver_runs(world, tmp)
     print(f"{tag} phase wall {time.perf_counter() - t:.3f} s", flush=True)
-    return {f"parallel {tag[10:-1]} olmo-1b train, {world} process(es), "
-            f"model axis {model}, global batch {b}, {TRAIN_STEPS} steps": {
-                "flash_attention": totals[0],
-                "flash_attention_bwd": totals[1]}}
+    where = (f"{world} process(es), model axis {model}, global batch {b}, "
+             f"{TRAIN_STEPS} steps")
+    names = {"olmo": ("olmo-1b", "flash_attention", "flash_attention_bwd"),
+             "mamba": (MAMBA, "ssd_scan", "ssd_scan_bwd")}
+    return {f"parallel {tag[10:-1]} {names[k][0]} train, {where}": {
+        names[k][1]: n[0], names[k][2]: n[1]} for k, n in totals.items()}
 
 
 def dp_driver_runs(world, tmp):

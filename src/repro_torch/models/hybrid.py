@@ -35,10 +35,10 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..parallel.ctx import constrain
 from .config import ModelConfig
-from .modules import (ParamSpec, _einsum, apply_rope, attention_specs,
-                      axes_tree, cross_entropy, dense_ffn, ffn_specs,
-                      gqa_attention, materialize, moe_ffn, norm, stack_specs,
-                      unembed, unstack_layers)
+from .modules import (ParamSpec, apply_rope, attention_specs, axes_tree,
+                      cross_entropy, decode_attention, decode_kv, dense_ffn,
+                      embed_tokens, ffn_specs, gqa_attention, materialize,
+                      moe_ffn, norm, stack_specs, unembed, unstack_layers)
 from .ssm import D_CONV, ssd_decode_step, ssd_layer, ssd_layer_specs
 
 Params = Dict[str, Any]
@@ -124,7 +124,7 @@ def forward(params: Params, batch: Dict, cfg: ModelConfig):
     """batch: tokens (B,S), positions (B,S), as tensors on the params'
     device.  Returns logits (B,S,V) in the compute dtype."""
     # Rows first, then the cast: the same values as casting the table.
-    x = params["embed"][batch["tokens"]].to(cfg.compute_dtype)
+    x = embed_tokens(params["embed"], batch["tokens"], cfg)
     positions = batch["positions"]
     # As the reference: only "full" checkpoints (a whole block); every
     # other policy runs plain.
@@ -174,14 +174,8 @@ def decode_step(params: Params, cache, lengths, tokens, cfg: ModelConfig):
     ``cache`` are updated in place (the JAX package returns new ones): the
     token's K/V rows at ``lengths`` and each Mamba position's conv window
     and SSM state."""
-    b = tokens.shape[0]
-    max_seq = cache["kv"].shape[3]
-    cdt = cfg.compute_dtype
-    rows = torch.arange(b, device=tokens.device)
-    x = params["embed"][tokens].to(cdt)                        # (B,1,D)
+    x = embed_tokens(params["embed"], tokens, cfg)             # (B,1,D)
     positions = lengths[:, None]                               # (B,1)
-    kv_pos = torch.arange(max_seq, device=tokens.device)[None, :]
-    kv_pos = torch.where(kv_pos <= lengths[:, None], kv_pos, -1)  # (B,S)
     roles = _position_roles(cfg)
     for blk, bp in enumerate(unstack_layers(params["blocks"])):
         kv, conv, ssm = cache["kv"][blk], cache["conv"][blk], \
@@ -191,19 +185,10 @@ def decode_step(params: Params, cache, lengths, tokens, cfg: ModelConfig):
             lp = bp[f"pos{i}"]
             if mixer == "attn":
                 xn = norm(x, lp["attn_norm"], cfg)
-                # f32 weights against compute-dtype activations, promoted
-                # to f32 as JAX promotes them
-                k_new = _einsum("bsd,dhk->bshk", xn,
-                                lp["attn"]["wk"]).to(cdt)
-                v_new = _einsum("bsd,dhk->bshk", xn,
-                                lp["attn"]["wv"]).to(cdt)
+                k_new, v_new = decode_kv(lp["attn"], xn, cfg)
                 k_new = apply_rope(k_new, positions, cfg.rope_theta)
-                kv[0, rows, lengths] = k_new[:, 0].to(kv.dtype)
-                kv[1, rows, lengths] = v_new[:, 0].to(kv.dtype)
-                h, _ = gqa_attention(lp["attn"], xn, positions, cfg,
-                                     causal=False, kv_override=(kv[0], kv[1]),
-                                     kv_positions=kv_pos)
-                x = x + h
+                x = x + decode_attention(lp["attn"], xn, positions, lengths,
+                                         (k_new, v_new), kv, cfg)
             else:
                 x, new_conv, new_ssm = ssd_decode_step(
                     lp["mamba"], x, conv[m], ssm[m], cfg)

@@ -15,7 +15,10 @@ loss on its vocabulary columns, the embedding on its rows.  A replicated
 activation enters such a computation through ``runtime.to_model`` and its
 partial output leaves through ``runtime.from_model``.  A leaf that
 ``spec_for`` leaves whole (a dimension that does not divide) is computed
-whole, on every process alike.
+whole, on every process alike.  In a decode step across processes
+(``parallel.ctx.seq_split``) the KV cache holds a block of the sequence
+and one token's attention merges the blocks' partial softmaxes
+(``decode_attention``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from torch.profiler import record_function
 from ..device import resolve_device
 from ..kernels import ops
 from ..parallel import runtime
-from ..parallel.ctx import Split, batch_group, constrain, model_split
+from ..parallel.ctx import (SeqSplit, Split, batch_group, constrain,
+                            model_split, seq_split)
 
 Params = Dict[str, Any]
 
@@ -201,9 +205,17 @@ def cross_entropy(logits, targets):
 # Normalization
 # --------------------------------------------------------------------------
 
-def rmsnorm(x, gamma=None, eps: float = 1e-6):
+def rmsnorm(x, gamma=None, eps: float = 1e-6, sum_over=None):
+    """RMS norm over the last dimension.  With ``sum_over`` = (group,
+    width), ``x`` is this process's part of a last dimension of ``width``
+    split over the group: the mean of squares is taken over the whole
+    (``runtime.psum`` of each part's mean, weighted by its share)."""
     x32 = x.float()
-    y = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    ms = (x32 * x32).mean(-1, keepdim=True)
+    if sum_over is not None:
+        group, width = sum_over
+        ms = runtime.psum(ms * (x.shape[-1] / width), group)
+    y = x32 * torch.rsqrt(ms + eps)
     if gamma is not None:
         y = y * gamma
     return y.to(x.dtype)
@@ -386,6 +398,117 @@ def gqa_attention(p: Params, x, positions, cfg, causal: bool = True,
     if hs is not None:
         out = runtime.from_model(out, hs.group)
     return out, (k, v)
+
+
+def decode_kv(p: Params, xn, cfg):
+    """The new token's k and v (B, 1, kvH, hd), every kv head, in the
+    compute dtype and before RoPE: the f32 weights against the
+    compute-dtype activations, promoted to f32 as JAX promotes them.
+    Where the step splits the kv heads over ``model``, each process
+    computes its block and the blocks are gathered (activations of B×kvH×hd,
+    not the weights)."""
+    cdt = cfg.compute_dtype
+    ks = _split(attention_specs(cfg)["wk"])
+    if ks is not None:
+        xn = runtime.to_model(xn, ks.group)
+    out = []
+    for w in ("wk", "wv"):
+        t = _einsum("bsd,dhk->bshk", xn, p[w]).to(cdt)
+        out.append(t if ks is None else runtime.gather_model(t, 2, ks.group))
+    return tuple(out)
+
+
+def decode_attention(p: Params, xn, positions, lengths, kv_new, kv, cfg):
+    """One token's attention against one layer's dense cache ``kv`` (2, B,
+    S, kvH, hd), updated in place: the token's k and v (``kv_new``, k
+    RoPE'd, (B, 1, kvH, hd) each) are written at position ``lengths[b]``
+    of each row, and the query attends to positions ≤ ``lengths[b]``.
+    Returns the attention's output (B, 1, D).
+
+    In a decode step across processes (``seq_split``) see
+    ``_merged_decode_attention``; otherwise the cache is whole and this
+    is ``gqa_attention`` over it."""
+    sq = seq_split()
+    if sq is not None:
+        return _merged_decode_attention(p, xn, positions, lengths, kv_new,
+                                        kv, cfg, sq)
+    rows = torch.arange(xn.shape[0], device=xn.device)
+    kv[0, rows, lengths] = kv_new[0][:, 0].to(kv.dtype)
+    kv[1, rows, lengths] = kv_new[1][:, 0].to(kv.dtype)
+    kv_pos = torch.arange(kv.shape[2], device=xn.device)[None, :]
+    kv_pos = torch.where(kv_pos <= lengths[:, None], kv_pos, -1)   # (B,S)
+    h, _ = gqa_attention(p, xn, positions, cfg, causal=False,
+                         kv_override=(kv[0], kv[1]), kv_positions=kv_pos)
+    return h
+
+
+def _merged_decode_attention(p: Params, xn, positions, lengths, kv_new, kv,
+                             cfg, sq: SeqSplit):
+    """``decode_attention`` on a cache block: positions [s0, s0 + S_loc)
+    of this process's rows, every kv head, or this process's block of kv
+    heads where the step splits them over ``model`` in place of the
+    sequence.
+
+    Every process computes the queries of every q head (its block of
+    ``wq``'s heads, gathered over ``model``), writes the token's row
+    where its block holds position ``lengths[b]``, and computes over its
+    positions, in f32, each head's running max m, its sum of exponentials
+    l = Σ exp(s − m) and its weighted sum of V, a = Σ exp(s − m)·v.  The
+    blocks merge over ``sq.group`` by log-sum-exp: M = max m (an
+    all-reduce MAX), then Σ l·exp(m − M) and Σ a·exp(m − M) (one all-reduce
+    SUM), and the context is a / l.  A block whose positions all lie past
+    ``lengths[b]`` has m = −1e30 and l its slot count, and drops out only
+    through exp(m − M) = 0 against the block that holds position 0: so no
+    block is normalised before the merge.  The context of this process's
+    heads then goes through ``wo``'s rows and ``from_model``, as in
+    ``gqa_attention``.  The one-device path rounds the softmax weights to
+    the compute dtype before the P·V product; here the partial sums stay
+    in f32."""
+    b = xn.shape[0]
+    cdt, hd = cfg.compute_dtype, cfg.head_dim
+    g = cfg.n_heads // cfg.kv_heads
+    pc = {k: w.to(cdt) for k, w in p.items()}
+    hs = _split(attention_specs(cfg)["wq"])
+    xq = xn if hs is None else runtime.to_model(xn, hs.group)
+    q = _einsum("bsd,dhk->bshk", xq, pc["wq"]).to(cdt)
+    q, _ = _rope_qk(q, q, positions, cfg)          # rope on q only
+    if hs is not None:
+        q = runtime.gather_model(q, 2, hs.group)
+    kvh, s_loc = kv.shape[3], kv.shape[2]
+    k0 = 0 if kvh == cfg.kv_heads else hs.rank * kvh
+    q = q[:, :, k0 * g:(k0 + kvh) * g]
+    rows = torch.arange(b, device=xn.device)
+    s0 = sq.index * s_loc
+    at = lengths - s0
+    inside = ((at >= 0) & (at < s_loc))[:, None, None]
+    at = at.clamp(0, s_loc - 1)
+    for j, new in enumerate(kv_new):
+        kv[j, rows, at] = torch.where(
+            inside, new[:, 0, k0:k0 + kvh].to(kv.dtype), kv[j, rows, at])
+    pos = s0 + torch.arange(s_loc, device=xn.device)
+    valid = pos[None, :] <= lengths[:, None]                    # (B,S_loc)
+    qg = q.reshape(b, 1, kvh, g, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, kv[0].to(cdt)) \
+        / math.sqrt(hd)
+    scores = scores.masked_fill(~valid[:, None, None, None, :], -1e30)
+    s32 = scores.float()
+    m = s32.amax(dim=-1)                                        # (B,k,g,1)
+    e = torch.exp(s32 - m[..., None])
+    acc = torch.einsum("bkgst,btkd->bkgsd", e, kv[1].float())
+    both = torch.cat([acc, e.sum(dim=-1)[..., None]], dim=-1)
+    if sq.group is not None:
+        runtime.counts["seq_merge"] += 1
+        top = m.clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=sq.group)
+        both = both * torch.exp(m - top)[..., None]
+        dist.all_reduce(both, op=dist.ReduceOp.SUM, group=sq.group)
+    ctx = (both[..., :-1] / both[..., -1:]).to(cdt)             # (B,k,g,1,d)
+    ctx = ctx.permute(0, 3, 1, 2, 4).reshape(b, 1, kvh * g, hd)
+    if hs is not None:
+        h0, h1 = hs.block(cfg.n_heads)
+        ctx = ctx[:, :, h0 - k0 * g:h1 - k0 * g]
+    out = torch.einsum("bshk,hkd->bsd", ctx, pc["wo"])
+    return out if hs is None else runtime.from_model(out, hs.group)
 
 
 # --------------------------------------------------------------------------

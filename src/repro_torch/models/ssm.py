@@ -11,6 +11,16 @@ JAX package runs plain jnp there.  Stacked layers are walked by a Python
 loop; under grad, ``remat="full"`` runs each layer through non-reentrant
 ``torch.utils.checkpoint``, as ``jax.checkpoint`` wraps each layer there;
 every other policy runs each layer plain, as the reference does.
+
+Under a step that splits the Mamba-2 heads over ``model`` (``a_log``,
+``d_skip`` and ``dt_bias`` over ``ssm_heads``, ``out_norm`` and ``w_out``'s
+rows over ``inner``), each process runs the layer on its block of heads:
+the z, x and dt columns of its heads and B and C whole, the causal conv
+over its x channels and B and C, K4 at its heads, the gated norm over the
+whole ``d_inner`` (``runtime.psum`` of the sum of squares) and ``w_out``'s
+rows, whose partial output ``from_model`` adds up (``_head_split``,
+``_in_proj``).  Decode keeps the conv window whole on every process and
+the SSM state of its heads.
 """
 
 from __future__ import annotations
@@ -24,10 +34,12 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..kernels import ops
 from ..kernels.ref import ssd_chunked_ref
-from ..parallel.ctx import constrain
+from ..parallel import runtime
+from ..parallel.ctx import Split, constrain
 from .config import ModelConfig
-from .modules import (ParamSpec, axes_tree, cross_entropy, materialize,
-                      norm, rmsnorm, stack_specs, unembed, unstack_layers)
+from .modules import (ParamSpec, _split, axes_tree, cross_entropy,
+                      embed_tokens, materialize, norm, rmsnorm, stack_specs,
+                      unembed, unstack_layers)
 
 Params = Dict[str, Any]
 D_CONV = 4
@@ -74,33 +86,122 @@ def _ssm_inputs(lp: Params, dt):
     return dt_soft, -torch.exp(lp["a_log"].float())
 
 
-def _gated_out(lp: Params, y, z, cfg: ModelConfig):
-    y = rmsnorm(y.to(cfg.compute_dtype) * F.silu(z), lp["out_norm"])
-    return y @ lp["w_out"].to(cfg.compute_dtype)
+def _head_split(cfg: ModelConfig) -> Optional[Split]:
+    """Where the running step splits the Mamba-2 heads over ``model``
+    (``a_log``'s split; ``d_skip`` and ``dt_bias`` have its shape and axes),
+    or None: every process then runs the whole layer alike.  ``out_norm``
+    and ``w_out``'s rows over ``inner`` must cover the channels of the same
+    heads, [r·H/m, (r+1)·H/m) at rank r: a split of one without the other
+    raises."""
+    specs = ssd_layer_specs(cfg)
+    hs, ns = _split(specs["a_log"]), _split(specs["out_norm"])
+    if (hs is None) != (ns is None):
+        raise NotImplementedError(
+            f"{cfg.name}: the Mamba-2 heads ({cfg.ssm_heads}) and d_inner "
+            f"({cfg.d_inner}) split differently over model: "
+            f"{hs} and {ns}")
+    return hs
+
+
+def _columns(w, ranges):
+    """The columns ``ranges`` ([start, stop) pairs, in order) of ``w``'s
+    last dimension, adjacent ranges merged: ``w`` itself where they cover
+    it whole."""
+    merged = []
+    for a, b in ranges:
+        if merged and merged[-1][1] == a:
+            merged[-1] = (merged[-1][0], b)
+        elif b > a:
+            merged.append((a, b))
+    if merged == [(0, w.shape[-1])]:
+        return w
+    return torch.cat([w[..., a:b] for a, b in merged], dim=-1)
+
+
+def _in_proj(lp: Params, xn, cfg: ModelConfig, hs: Optional[Split],
+             whole_x: bool = False):
+    """(z, xbc, dt, conv_w) of this process's heads [h0, h1): the
+    in-projection's z, x and dt columns of those heads (every x column
+    where ``whole_x``: decode keeps the whole conv window) and B and C,
+    and ``conv_w``'s columns for xbc's channels.
+
+    With the heads split, the packed ``w_in`` (z | x | B | C | dt, split
+    into even blocks over ``model`` that do not fall on its components) is
+    gathered whole with ``gather_blocks``: each process reads its own
+    columns and adds only its part to B's and C's gradient, so the
+    gradient is summed over ``model`` into each block.  A ``w_in`` or
+    ``conv_w`` that every process holds whole enters through ``to_model``
+    for the same reason, and so does ``xn``.  With the heads whole every
+    process computes every column alike, and a split ``w_in`` is gathered
+    by ``gather_model`` (its gradient is the same on every process)."""
+    cdt = cfg.compute_dtype
+    ws = _split(ssd_layer_specs(cfg)["w_in"])
+    w_in, conv_w = lp["w_in"], lp["conv_w"]
+    if hs is None:
+        if ws is not None:
+            w_in = runtime.gather_model(w_in, ws.dim, ws.group)
+        z, xbc, dt = _split_proj(cfg, xn @ w_in.to(cdt))
+        return z, xbc, dt, conv_w
+    w_in = (runtime.to_model(w_in, hs.group) if ws is None
+            else runtime.gather_blocks(w_in, ws.dim, hs.group))
+    conv_w = runtime.to_model(conv_w, hs.group)
+    xn = runtime.to_model(xn, hs.group)
+    di, st, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_headdim
+    h0, h1 = hs.block(cfg.ssm_heads)
+    xs = (0, di) if whole_x else (h0 * p, h1 * p)
+    proj = xn @ _columns(w_in, [
+        (h0 * p, h1 * p), (di + xs[0], di + xs[1]),
+        (2 * di, 2 * di + 2 * st),
+        (2 * di + 2 * st + h0, 2 * di + 2 * st + h1)]).to(cdt)
+    nz, nxbc = (h1 - h0) * p, xs[1] - xs[0] + 2 * st
+    conv_w = _columns(conv_w, [xs, (di, di + 2 * st)])
+    return (proj[..., :nz], proj[..., nz:nz + nxbc], proj[..., nz + nxbc:],
+            conv_w)
+
+
+def _gated_out(lp: Params, y, z, cfg: ModelConfig,
+               hs: Optional[Split] = None):
+    """rmsnorm(y · silu(z)) over the whole d_inner, then ``w_out``: with
+    the heads split, over this process's channels, their mean of squares
+    summed over ``model`` and the partial output added up by
+    ``from_model``."""
+    y = y.to(cfg.compute_dtype) * F.silu(z)
+    y = rmsnorm(y, lp["out_norm"],
+                sum_over=None if hs is None else (hs.group, cfg.d_inner))
+    out = y @ lp["w_out"].to(cfg.compute_dtype)
+    return out if hs is None else runtime.from_model(out, hs.group)
+
+
+def _heads(cfg: ModelConfig, hs: Optional[Split]):
+    return (0, cfg.ssm_heads) if hs is None else hs.block(cfg.ssm_heads)
 
 
 def ssd_layer(lp: Params, x, cfg: ModelConfig,
               initial_state: Optional[torch.Tensor] = None,
               return_state: bool = False):
-    """Full Mamba-2 block: in-proj → conv → SSD → gated out-proj."""
+    """Full Mamba-2 block: in-proj → conv → SSD → gated out-proj (on this
+    process's heads where the step splits them; ``initial_state`` and the
+    state returned are then those heads')."""
     cdt = cfg.compute_dtype
     x = constrain(x, ("act_batch", None, None))
+    hs = _head_split(cfg)
     xn = norm(x, lp["norm"], cfg)
-    proj = xn @ lp["w_in"].to(cdt)
-    z, xbc, dt = _split_proj(cfg, proj)
-    xbc = _causal_conv(xbc, lp["conv_w"].to(cdt))
-    di, st = cfg.d_inner, cfg.ssm_state
+    z, xbc, dt, conv_w = _in_proj(lp, xn, cfg, hs)
+    xbc = _causal_conv(xbc, conv_w.to(cdt))
+    h0, h1 = _heads(cfg, hs)
+    st = cfg.ssm_state
+    di = (h1 - h0) * cfg.ssm_headdim
     b, s, _ = xbc.shape
     # x, B and C are strided views of xbc (and .float() of an f32 view is
     # the view): the kernel takes contiguous inputs.
-    xh = xbc[..., :di].float().reshape(b, s, cfg.ssm_heads, cfg.ssm_headdim)
+    xh = xbc[..., :di].float().reshape(b, s, h1 - h0, cfg.ssm_headdim)
     bmat = xbc[..., di:di + st].float().contiguous()
     cmat = xbc[..., di + st:].float().contiguous()
     dt_soft, a = _ssm_inputs(lp, dt)
     y, state = ops.ssd(xh.contiguous(), dt_soft, a, bmat, cmat,
                        cfg.ssm_chunk, initial_state)
     y = y + lp["d_skip"].float()[None, None, :, None] * xh
-    out = _gated_out(lp, y.reshape(b, s, di), z, cfg)
+    out = _gated_out(lp, y.reshape(b, s, di), z, cfg, hs)
     if return_state:
         return x + out, state
     return x + out
@@ -108,17 +209,21 @@ def ssd_layer(lp: Params, x, cfg: ModelConfig,
 
 def ssd_decode_step(lp: Params, x1, conv_state, ssm_state, cfg: ModelConfig):
     """Single-token decode.  x1: (B,1,D); conv_state: (B,K-1,conv_dim);
-    ssm_state: (B,H,P,N).  Returns (y1, new_conv_state, new_ssm_state)."""
+    ssm_state: (B,H,P,N).  Returns (y1, new_conv_state, new_ssm_state).
+    Where the step splits the heads, ``conv_state`` is still whole (every
+    process updates the whole window alike) and ``ssm_state`` holds this
+    process's heads."""
     cdt = cfg.compute_dtype
+    hs = _head_split(cfg)
     xn = norm(x1, lp["norm"], cfg)
-    proj = xn @ lp["w_in"].to(cdt)
-    z, xbc, dt = _split_proj(cfg, proj)
+    z, xbc, dt, conv_w = _in_proj(lp, xn, cfg, hs, whole_x=True)
     window = torch.cat([conv_state, xbc], dim=1)              # (B,K,C)
-    conv_w = lp["conv_w"].to(cdt)
-    conv_out = F.silu(torch.einsum("bkc,kc->bc", window, conv_w))[:, None]
-    di, st = cfg.d_inner, cfg.ssm_state
-    xh = conv_out[..., :di].reshape(-1, cfg.ssm_heads,
-                                    cfg.ssm_headdim).float()  # (B,H,P)
+    conv_out = F.silu(torch.einsum("bkc,kc->bc", window,
+                                   conv_w.to(cdt)))[:, None]
+    di, st, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_headdim
+    h0, h1 = _heads(cfg, hs)
+    xh = conv_out[..., h0 * p:h1 * p].reshape(-1, h1 - h0,
+                                              p).float()      # (B,H,P)
     bv = conv_out[:, 0, di:di + st].float()                   # (B,N)
     cv = conv_out[:, 0, di + st:].float()
     dt_soft, a = _ssm_inputs(lp, dt[:, 0])
@@ -127,7 +232,8 @@ def ssd_decode_step(lp: Params, x1, conv_state, ssm_state, cfg: ModelConfig):
         (dt_soft[..., None] * xh)[..., None] * bv[:, None, None, :]
     y = torch.einsum("bhpn,bn->bhp", new_state, cv)
     y = y + lp["d_skip"].float()[None, :, None] * xh
-    out = _gated_out(lp, y.reshape(x1.shape[0], 1, di), z, cfg)
+    out = _gated_out(lp, y.reshape(x1.shape[0], 1, (h1 - h0) * p), z, cfg,
+                     hs)
     return x1 + out, window[:, 1:], new_state
 
 
@@ -158,7 +264,7 @@ def forward(params: Params, batch: Dict, cfg: ModelConfig):
     """batch: tokens (B,S) on the params' device (positions, if given, are
     not read).  Returns logits (B,S,V) in the compute dtype."""
     # Rows first, then the cast: the same values as casting the table.
-    x = params["embed"][batch["tokens"]].to(cfg.compute_dtype)
+    x = embed_tokens(params["embed"], batch["tokens"], cfg)
     # As the reference: only "full" checkpoints; every other policy runs
     # each layer plain.
     remat = torch.is_grad_enabled() and cfg.remat == "full"
@@ -193,7 +299,7 @@ def decode_step(params: Params, cache, lengths, tokens, cfg: ModelConfig):
     ``cache["conv"]`` and ``cache["ssm"]`` are updated in place (the JAX
     package returns new arrays).  ``lengths`` is not read: the state
     carries the position."""
-    x = params["embed"][tokens].to(cfg.compute_dtype)        # (B,1,D)
+    x = embed_tokens(params["embed"], tokens, cfg)           # (B,1,D)
     for i, lp in enumerate(unstack_layers(params["layers"])):
         x, conv, ssm = ssd_decode_step(lp, x, cache["conv"][i],
                                        cache["ssm"][i], cfg)

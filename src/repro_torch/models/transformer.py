@@ -32,8 +32,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import resolve_device
 from ..parallel.ctx import constrain
 from .config import ModelConfig
-from .modules import (ParamSpec, _einsum, apply_mrope, apply_rope,
-                      attention_specs, axes_tree, cross_entropy,
+from .modules import (ParamSpec, apply_mrope, apply_rope, attention_specs,
+                      axes_tree, cross_entropy, decode_attention, decode_kv,
                       embed_tokens, ffn, ffn_specs, gqa_attention,
                       materialize, norm, stack_specs, unembed,
                       unstack_layers)
@@ -165,31 +165,18 @@ def decode_step(params: Params, cache, lengths, tokens, cfg: ModelConfig
     if cfg.frontend != "none":
         raise ValueError(f"{cfg.name} is an encoder over frame embeddings "
                          "and has no decode step")
-    b = tokens.shape[0]
-    max_seq = cache.shape[3]
-    cdt = cfg.compute_dtype
-    rows = torch.arange(b, device=tokens.device)
-    x = params["embed"][tokens].to(cdt)                        # (B,1,D)
+    x = embed_tokens(params["embed"], tokens, cfg)             # (B,1,D)
     positions = lengths[:, None]                               # (B,1)
     if cfg.rope == "mrope":
         positions = positions[..., None].repeat(1, 1, 3)       # (B,1,3)
-    kv_pos = torch.arange(max_seq, device=tokens.device)[None, :]
-    kv_pos = torch.where(kv_pos <= lengths[:, None], kv_pos, -1)  # (B,S)
     for i, lp in enumerate(unstack_layers(params["layers"])):
         xn = norm(x, lp["attn_norm"], cfg)
-        # new k/v for this token: f32 weights against the compute-dtype
-        # activations, promoted to f32 as JAX promotes them
-        k_new = _einsum("bsd,dhk->bshk", xn, lp["attn"]["wk"]).to(cdt)
-        v_new = _einsum("bsd,dhk->bshk", xn, lp["attn"]["wv"]).to(cdt)
+        k_new, v_new = decode_kv(lp["attn"], xn, cfg)
         if cfg.rope == "rope":
             k_new = apply_rope(k_new, positions, cfg.rope_theta)
         elif cfg.rope == "mrope":
             k_new = apply_mrope(k_new, positions, cfg.mrope_sections)
-        cache[i, 0, rows, lengths] = k_new[:, 0].to(cache.dtype)
-        cache[i, 1, rows, lengths] = v_new[:, 0].to(cache.dtype)
-        h, _ = gqa_attention(lp["attn"], xn, positions, cfg, causal=False,
-                             kv_override=(cache[i, 0], cache[i, 1]),
-                             kv_positions=kv_pos)
-        x = x + h
+        x = x + decode_attention(lp["attn"], xn, positions, lengths,
+                                 (k_new, v_new), cache[i], cfg)
         x = x + ffn(lp["ffn"], norm(x, lp["ffn_norm"], cfg), cfg)
     return unembed(params, x, cfg), cache

@@ -28,7 +28,13 @@ The scope of a step that runs across processes also carries:
   ``spec_for`` on its whole shape and logical axes, as ``step_specs``
   lays the step's params out), and where, and then computes on its
   block (tensor and expert parallelism).  Without such a scope every
-  leaf is whole.
+  leaf is whole;
+* in a decode step, how its KV cache splits along the sequence
+  (``seq_split``): each process holds a block of the positions, and the
+  attention of one token merges the blocks' partial softmaxes over the
+  group that splits them.  A dimension split over two axes (``cache_seq``
+  over ``data`` and ``model`` under ``long_context_rules``) has a group of
+  its own here; a param leaf's stays refused (``model_split``).
 """
 
 from __future__ import annotations
@@ -61,11 +67,21 @@ class Split(NamedTuple):
         return self.rank * k, (self.rank + 1) * k
 
 
+class SeqSplit(NamedTuple):
+    """A decode step's KV cache along its sequence: this process holds
+    block ``index`` of ``size`` (positions [index·S/size, (index+1)·S/size)
+    of S), and ``group`` holds the processes of the other blocks, or is
+    None where the sequence is whole."""
+    group: Any
+    index: int
+    size: int
+
+
 @contextlib.contextmanager
 def activation_rules(mesh: Mesh, rules: Rules, batch_group=None,
-                     model_group=None):
+                     model_group=None, seq: Optional[SeqSplit] = None):
     prev = _state.ctx
-    _state.ctx = (mesh, rules, batch_group, model_group)
+    _state.ctx = (mesh, rules, batch_group, model_group, seq)
     try:
         yield
     finally:
@@ -97,7 +113,7 @@ def model_split(shape: Tuple[int, ...],
     ctx = _state.ctx
     if ctx is None or ctx[3] is None:
         return None
-    mesh, rules, _, group = ctx
+    mesh, rules, _, group, _ = ctx
     for dim, entry in enumerate(spec_for(tuple(shape), tuple(axes), rules,
                                          mesh)):
         if "model" in spec_axes(entry):
@@ -108,3 +124,10 @@ def model_split(shape: Tuple[int, ...],
             return Split(dim, coords(mesh)["model"], mesh.shape["model"],
                          group)
     return None
+
+
+def seq_split() -> Optional[SeqSplit]:
+    """How the running decode step splits its KV cache's sequence, or
+    None: no decode step runs across processes."""
+    ctx = _state.ctx
+    return None if ctx is None else ctx[4]

@@ -34,13 +34,25 @@ reduce-scatters itself.  Here the train and prefill steps call them
   and the same on each;
 * ``gather_model`` gathers a split leaf whole over ``model`` for a
   computation that needs all of it (the MoE's router), and gives its
-  block of the (whole, equal) gradient back.
+  block of the (whole, equal) gradient back;
+* ``gather_blocks`` gathers a split leaf whole over a group for a
+  computation that each process runs on its own part of it (Mamba-2's
+  packed ``w_in``, whose blocks do not fall on its components): the
+  gradients differ from process to process, so backward they are summed
+  into each process's block (a reduce-scatter);
+* ``psum``, a differentiable all-reduce whose result each process uses
+  on its own part (the gated norm's sum of squares over a split
+  ``d_inner``): forward and backward both sum over the group;
+* ``axes_group`` is the group of the processes that split one dimension
+  over several axes (a KV cache's sequence over ``data`` and ``model``).
 
 A leaf is split over an axis when its spec names the axis (``spec_for``),
 whatever the axis's size: at one process each collective is a copy, so a
 group of one runs the same code as a group of many.  ``counts`` counts the
-calls of ``to_model``, ``from_model`` and the vocabulary-parallel loss
-(``models/modules.py``), so a run can show that it took the split path.
+calls of ``to_model``, ``from_model``, ``gather_blocks``, ``psum``, the
+vocabulary-parallel loss and the decode's log-sum-exp merge over a split
+sequence (``models/modules.py``), so a run can show that it took the split
+path.
 The collectives are ``all_gather_into_tensor``, ``reduce_scatter_tensor``
 and ``all_reduce``, which both the gloo and the NCCL backends run; a
 dimension other than 0 is moved to the front first.
@@ -105,7 +117,8 @@ def init_group(device="cuda", store: Optional[dist.Store] = None,
     return dev
 
 
-counts = {"to_model": 0, "from_model": 0, "vocab_loss": 0}
+counts = {"to_model": 0, "from_model": 0, "vocab_loss": 0,
+          "gather_blocks": 0, "psum": 0, "seq_merge": 0}
 
 
 def reset_counts() -> None:
@@ -113,12 +126,9 @@ def reset_counts() -> None:
         counts[k] = 0
 
 
-def check_executable(mesh: Mesh, family: Optional[str] = None) -> None:
+def check_executable(mesh: Mesh) -> None:
     """Raise unless the mesh's processes can run it: one process a device,
-    no axis but ``data`` and ``model`` larger than 1, and a ``model`` axis
-    larger than 1 only for the transformer families (``family``: the
-    model's; Mamba-2's packed ``w_in`` and the hybrid's Mamba positions
-    have no split layout yet)."""
+    and no axis but ``data`` and ``model`` larger than 1."""
     n = dist.get_world_size(mesh.group)
     if n != mesh.size:
         raise ValueError(f"a mesh of {mesh.size} devices in a group of {n} "
@@ -129,11 +139,6 @@ def check_executable(mesh: Mesh, family: Optional[str] = None) -> None:
         raise NotImplementedError(
             f"mesh axes {wide}: only the data and model axes are executed "
             "(ROADMAP item 16)")
-    if mesh.shape.get("model", 1) > 1 and family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the {family} family on a model axis of "
-            f"{mesh.shape['model']}: Mamba-2's head split is ROADMAP item "
-            "16")
 
 
 def rank(mesh: Mesh) -> int:
@@ -149,6 +154,19 @@ def barrier(mesh: Mesh) -> None:
 
 def coords(mesh: Mesh):
     return mesh_coords(mesh, rank(mesh))
+
+
+def axes_group(mesh: Mesh, axes: Tuple[str, ...]):
+    """The group of the processes that split one dimension over ``axes``
+    (this process's, in the order of the blocks: row-major over the axes'
+    coordinates): one axis's group, or the mesh's group where ``axes``
+    hold every axis larger than 1."""
+    if len(axes) == 1:
+        return mesh.axis_group(axes[0])
+    if all(a in axes for a, s in mesh.shape.items() if s > 1):
+        return mesh.group
+    raise NotImplementedError(f"a dimension split over {axes} on a mesh "
+                              f"{mesh.shape}")
 
 
 def axis_dim(spec: PartitionSpec, axis: str) -> Optional[int]:
@@ -288,22 +306,58 @@ def all_sum(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-class _GatherRows(torch.autograd.Function):
+class _GatherBlocks(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _gather(x, 0, group)
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, dy):
-        return _reduce_scatter(dy, 0, ctx.group), None
+        return _reduce_scatter(dy, ctx.dim, ctx.group), None, None
 
 
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """Every process's rows of ``x`` (dimension 0), in rank order; the
     gradient of each process's rows is the sum of every process's gradient
     for them (a reduce-scatter)."""
-    return _GatherRows.apply(x, group)
+    return _GatherBlocks.apply(x, 0, group)
+
+
+def gather_blocks(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """A leaf's blocks along ``dim`` gathered whole over the group, for a
+    computation that each process runs on its own part of the whole: the
+    gradient of each process's block is the sum of every process's
+    gradient for it (a reduce-scatter), where ``gather_model`` takes the
+    block of a gradient that is the same on every process."""
+    counts["gather_blocks"] += 1
+    return _GatherBlocks.apply(x, dim, group)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        dy = dy.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(dy, op=dist.ReduceOp.SUM, group=ctx.group)
+        return dy, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the group, every process getting the sum, for a
+    computation in which each process uses the sum on its own part (the
+    outputs differ from process to process): backward, the gradient of
+    each process's ``x`` is the sum of every process's gradient of the
+    sum.  ``from_model`` is the case where every process's use is the
+    same, and its gradient passes unchanged."""
+    counts["psum"] += 1
+    return _PSum.apply(x, group)
 
 
 class _ToModel(torch.autograd.Function):

@@ -4,8 +4,8 @@ the data pipeline."""
 from .data import synthetic_batch
 from .optimizer import AdamWConfig, apply_updates, init_state
 from .step import (TrainConfig, build_decode_step, build_prefill_step,
-                   build_train_step)
+                   build_train_step, init_cache_blocks)
 
 __all__ = ["AdamWConfig", "apply_updates", "init_state", "TrainConfig",
            "build_decode_step", "build_prefill_step", "build_train_step",
-           "synthetic_batch"]
+           "init_cache_blocks", "synthetic_batch"]

@@ -19,10 +19,13 @@ runs (one that carries a process group: ``make_host_mesh`` in a group),
 the train and prefill steps execute its ``data`` and ``model`` axes as
 the JAX steps under ``jax.jit(in_shardings=...)`` do: the batch split by
 rows over ``data``, params and AdamW moments held as blocks over both
-axes (FSDP over ``data``; heads, kv heads, FFN columns, experts and
-vocabulary over ``model``), and each layer computing on its blocks
-(``_sharded_train_step``, ``_sharded_prefill_step``, ``models/modules``).
-Decode does not run across processes yet.
+axes (FSDP over ``data``; heads, kv heads, FFN columns, experts,
+Mamba-2 heads and vocabulary over ``model``), and each layer computing on
+its blocks (``_sharded_train_step``, ``_sharded_prefill_step``,
+``models/modules``, ``models/ssm``).  So does the decode step
+(``_sharded_decode_step``), with the KV cache split along its sequence
+over the group ``cache_seq`` names and each token's attention merged over
+it by log-sum-exp.
 """
 
 from __future__ import annotations
@@ -39,10 +42,10 @@ from ..models import get_model
 from ..models.config import ModelConfig
 from ..models.modules import ParamSpec, cross_entropy_terms, vocab_split
 from ..parallel import runtime
-from ..parallel.ctx import activation_rules
+from ..parallel.ctx import SeqSplit, activation_rules
 from ..parallel.sharding import (Mesh, PartitionSpec as P, Rules,
-                                 default_rules, spec_for, tree_map,
-                                 tree_specs)
+                                 default_rules, shard_shape, spec_axes,
+                                 spec_for, tree_map, tree_specs)
 from .optimizer import (AdamWConfig, apply_updates, init_state,
                         tree_leaves, tree_unflatten)
 
@@ -77,22 +80,14 @@ def _runs(mesh: Optional[Mesh]) -> bool:
     return mesh is not None and mesh.group is not None
 
 
-def _plan_only(mesh: Optional[Mesh], step: str) -> None:
-    """Decode takes a mesh that plans; one that runs raises."""
-    if _runs(mesh):
-        runtime.check_executable(mesh)
-        raise NotImplementedError(f"the {step} step does not run across "
-                                  "processes yet (ROADMAP item 16)")
-
-
-def _batch_rows(b_spec, mesh: Mesh, global_batch: int, parts: int = 1):
+def _batch_rows(spec, mesh: Mesh, global_batch: int, parts: int = 1):
     """(whether the batch is split over ``data``, the rows of each of
     ``parts`` parts this process takes, the first of them within a
-    part).  Where the global batch does not divide over ``data``,
-    ``spec_for`` replicates it, as JAX does, and every process takes
-    every row; the ``model`` processes of one ``data`` coordinate take
-    the same rows."""
-    split = runtime.data_dim(b_spec["positions"]) == 0
+    part), from the spec of a tensor whose rows are the batch's.  Where
+    the global batch does not divide over ``data``, ``spec_for``
+    replicates it, as JAX does, and every process takes every row; the
+    ``model`` processes of one ``data`` coordinate take the same rows."""
+    split = runtime.data_dim(spec) == 0
     n = mesh.shape["data"] if split else 1
     if global_batch % (parts * n):
         raise ValueError(f"a global batch of {global_batch} does not split "
@@ -240,7 +235,11 @@ def _sharded_train_step(cfg: ModelConfig, global_batch: int, seq: int,
       (``reduce_tree``), divided by m, and AdamW updates the blocks in
       place (``apply_updates``: elementwise).  A leaf split over
       ``model`` has its block's gradient; one that every ``model``
-      process holds whole has the whole gradient, the same on each.
+      process holds whole has the whole gradient, the same on each.  A
+      leaf that the ``model`` processes each use on their own part
+      (Mamba-2's ``w_in`` and ``conv_w``) has its gradient summed over
+      ``model`` inside the layer (``runtime.gather_blocks``,
+      ``runtime.to_model``: ``models/ssm.py``).
     * ``loss`` and ``grad_norm`` come out whole, equal on every process;
       ``grad_norm`` counts a leaf replicated over an axis once
       (``global_norm``).
@@ -248,13 +247,34 @@ def _sharded_train_step(cfg: ModelConfig, global_batch: int, seq: int,
     At one process each collective is a copy, and the step gives the
     bits of the one-process step.  ``tc.grad_compression`` is read by
     nothing, as in the JAX step (ROADMAP F16)."""
-    runtime.check_executable(mesh, cfg.family)
+    grads, p_spec = _sharded_grads(cfg, global_batch, seq, tc, dev, mesh,
+                                   rules)
+    spec_leaves = tree_leaves(p_spec)
+
+    def train_step(params, opt_state, batch):
+        loss, g = grads(params, batch)
+        return _update(params, opt_state, loss, tree_leaves(g),
+                       tc.microbatches,
+                       lambda g: runtime.global_norm(g, spec_leaves, mesh),
+                       tc.adamw)
+
+    return train_step
+
+
+def _sharded_grads(cfg: ModelConfig, global_batch: int, seq: int,
+                   tc: TrainConfig, dev: torch.device, mesh: Mesh,
+                   rules: Rules):
+    """(grads, p_spec): ``grads(params, batch)`` is ``_sharded_train_step``
+    up to AdamW: (the loss, this process's blocks of the gradient summed
+    over ``data`` and over the microbatches, not yet divided by their
+    count)."""
+    runtime.check_executable(mesh)
     model = get_model(cfg)
     (p_spec, _, b_spec), _ = step_specs(cfg, "train", mesh, global_batch,
                                         seq, tc, rules)
-    spec_leaves = tree_leaves(p_spec)
     data, m = mesh.axis_group("data"), tc.microbatches
-    split, rows, first = _batch_rows(b_spec, mesh, global_batch, m)
+    split, rows, first = _batch_rows(b_spec["positions"], mesh,
+                                     global_batch, m)
 
     def part(batch, i):
         at = i * (global_batch // m) + first
@@ -279,23 +299,20 @@ def _sharded_train_step(cfg: ModelConfig, global_batch: int, seq: int,
             loss = runtime.all_sum(loss, data)
         return loss.detach(), grads
 
-    def train_step(params, opt_state, batch):
+    def grads(params, batch):
         with torch.no_grad():
             full = runtime.gather_tree(params, p_spec, mesh)
-        loss, grads = _accumulate(
+        loss, g = _accumulate(
             lambda i: value_and_grad(full, part(batch, i)), m, dev)
         del full
-        grads = tree_unflatten(params, list(grads))
+        g = tree_unflatten(params, list(g))
         if split:
-            grads = runtime.reduce_tree(grads, p_spec, mesh)
-        else:
-            grads = tree_map(lambda g, spec: runtime.data_block(g, spec, mesh),
-                             grads, p_spec)
-        return _update(params, opt_state, loss, tree_leaves(grads), m,
-                       lambda g: runtime.global_norm(g, spec_leaves, mesh),
-                       tc.adamw)
+            return loss, runtime.reduce_tree(g, p_spec, mesh)
+        return loss, tree_map(lambda x, spec: runtime.data_block(x, spec,
+                                                                 mesh),
+                              g, p_spec)
 
-    return train_step
+    return grads, p_spec
 
 
 def _sharded_prefill_step(cfg: ModelConfig, global_batch: int, seq: int,
@@ -307,11 +324,12 @@ def _sharded_prefill_step(cfg: ModelConfig, global_batch: int, seq: int,
     process's block of the last token's logits, as the JAX step's
     ``out_shardings`` lays them out: its rows over ``data``, its
     vocabulary columns over ``model``."""
-    runtime.check_executable(mesh, cfg.family)
+    runtime.check_executable(mesh)
     model = get_model(cfg)
     (p_spec, b_spec), _ = step_specs(cfg, "prefill", mesh, global_batch,
                                      seq, rules=rules)
-    split, rows, first = _batch_rows(b_spec, mesh, global_batch)
+    split, rows, first = _batch_rows(b_spec["positions"], mesh,
+                                     global_batch)
 
     def prefill_step(params, batch):
         batch = {k: torch.as_tensor(v[first:first + rows], device=dev)
@@ -367,6 +385,13 @@ def cache_axes(cfg: ModelConfig):
     return ("layers", "kv2", "batch", "cache_seq", "kv_heads", "head_dim")
 
 
+def _cache_abstract(cfg: ModelConfig, global_batch: int, max_seq: int):
+    model = get_model(cfg)
+    if cfg.family == "ssm":
+        return model.init_cache(cfg, global_batch, device=META)
+    return model.init_cache(cfg, global_batch, max_seq, device=META)
+
+
 def build_decode_step(cfg: ModelConfig, global_batch: int, max_seq: int,
                       device="cuda", mesh: Optional[Mesh] = None,
                       rules: Optional[Rules] = None):
@@ -374,19 +399,19 @@ def build_decode_step(cfg: ModelConfig, global_batch: int, max_seq: int,
     family, the O(1) conv and SSM state; ``max_seq`` is then not used).
     Returns (serve_step, (params, cache, lengths, tokens) as meta tensors);
     ``serve_step`` returns (logits (B, 1, V), cache), the cache updated in
-    place."""
-    _plan_only(mesh, "decode")
+    place.  On a mesh that runs, see ``_sharded_decode_step``."""
     dev = resolve_device(device)
     model = get_model(cfg)
     params_abs = _meta_params(model.specs(cfg), cfg.param_dtype)
-    if cfg.family == "ssm":
-        cache_abs = model.init_cache(cfg, global_batch, device=META)
-    else:
-        cache_abs = model.init_cache(cfg, global_batch, max_seq, device=META)
+    cache_abs = _cache_abstract(cfg, global_batch, max_seq)
     lengths_abs = torch.empty((global_batch,), dtype=torch.int32,
                               device=META)
     tokens_abs = torch.empty((global_batch, 1), dtype=torch.int32,
                              device=META)
+    abstract = (params_abs, cache_abs, lengths_abs, tokens_abs)
+    if _runs(mesh):
+        return _sharded_decode_step(cfg, global_batch, max_seq, dev, mesh,
+                                    rules or default_rules(mesh)), abstract
 
     def serve_step(params, cache, lengths, tokens):
         with torch.no_grad(), _rules_scope(mesh, rules):
@@ -394,7 +419,83 @@ def build_decode_step(cfg: ModelConfig, global_batch: int, max_seq: int,
                 params, cache, torch.as_tensor(lengths, device=dev),
                 torch.as_tensor(tokens, device=dev), cfg)
 
-    return serve_step, (params_abs, cache_abs, lengths_abs, tokens_abs)
+    return serve_step, abstract
+
+
+def _seq_split(kv_spec, mesh: Mesh) -> SeqSplit:
+    """How a KV cache laid out by ``kv_spec`` (its dimension 3 is
+    ``cache_seq``) splits its sequence: over the axes its entry names,
+    block numbered row-major over their coordinates, as ``local_slice``
+    numbers them; no group where the sequence is whole."""
+    axes = spec_axes(kv_spec[3] if len(kv_spec) > 3 else None)
+    if not axes:
+        return SeqSplit(None, 0, 1)
+    at, size = 0, 1
+    here = runtime.coords(mesh)
+    for a in axes:
+        at, size = at * mesh.shape[a] + here[a], size * mesh.shape[a]
+    return SeqSplit(runtime.axes_group(mesh, axes), at, size)
+
+
+def _sharded_decode_step(cfg: ModelConfig, global_batch: int, max_seq: int,
+                         dev: torch.device, mesh: Mesh, rules: Rules):
+    """The decode step on a mesh that runs, laid out by ``step_specs(cfg,
+    "decode", ...)`` as the JAX step under ``jax.jit(in_shardings=...,
+    out_shardings=...)``: ``params`` are this process's blocks, gathered
+    whole over ``data`` for the call; ``cache`` is this process's block of
+    the cache (``init_cache_blocks``), updated in place; ``lengths`` and
+    ``tokens`` are whole, and each process takes its rows where the batch
+    splits over ``data``.  Returns (this process's block of the logits:
+    its rows over ``data``, its vocabulary columns over ``model``;
+    ``cache``).
+
+    The KV cache holds positions [s0, s1) of this process's rows for
+    every kv head (``cache_seq`` over ``model`` under ``default_rules``;
+    over ``data`` and ``model``, with the batch whole, under
+    ``long_context_rules``), and each layer's attention merges the blocks
+    over the group that splits them (``modules.decode_attention``).  The
+    Mamba-2 positions hold the whole conv window and the SSM state of
+    their heads (``models/ssm.py``)."""
+    runtime.check_executable(mesh)
+    model = get_model(cfg)
+    (p_spec, c_spec, l_spec, _), _ = step_specs(cfg, "decode", mesh,
+                                                global_batch, max_seq,
+                                                rules=rules)
+    split, rows, first = _batch_rows(l_spec, mesh, global_batch)
+    seq = _seq_split(c_spec.get("kv", P()) if isinstance(c_spec, dict)
+                     else c_spec, mesh)
+
+    def serve_step(params, cache, lengths, tokens):
+        lengths = torch.as_tensor(lengths[first:first + rows], device=dev)
+        tokens = torch.as_tensor(tokens[first:first + rows], device=dev)
+        with torch.no_grad(), activation_rules(
+                mesh, rules, mesh.axis_group("data") if split else None,
+                mesh.axis_group("model"), seq):
+            full = runtime.gather_tree(params, p_spec, mesh)
+            return model.decode_step(full, cache, lengths, tokens, cfg)
+
+    return serve_step
+
+
+def init_cache_blocks(cfg: ModelConfig, global_batch: int, max_seq: int,
+                      mesh: Mesh, rules: Optional[Rules] = None,
+                      device="cuda"):
+    """This process's block of a zero decode cache on ``mesh``, at the
+    ``shard_shape`` of its spec in ``step_specs(cfg, "decode", ...)``:
+    no process holds the whole cache.  On a mesh that only plans, the
+    whole cache."""
+    dev = resolve_device(device)
+    cache_abs = _cache_abstract(cfg, global_batch, max_seq)
+    (_, c_spec, _, _), _ = step_specs(cfg, "decode", mesh, global_batch,
+                                      max_seq, rules=rules)
+
+    def block(x, spec):
+        shape = (shard_shape(tuple(x.shape), spec, mesh) if _runs(mesh)
+                 else tuple(x.shape))
+        return torch.zeros(shape, dtype=x.dtype, device=dev)
+    if isinstance(cache_abs, dict):
+        return {k: block(v, c_spec[k]) for k, v in cache_abs.items()}
+    return block(cache_abs, c_spec)
 
 
 def step_specs(cfg: ModelConfig, kind: str, mesh: Mesh, global_batch: int,
@@ -422,8 +523,7 @@ def step_specs(cfg: ModelConfig, kind: str, mesh: Mesh, global_batch: int,
                          rules, mesh))
     if kind != "decode":
         raise ValueError(f"unknown step kind {kind!r}")
-    _, (_, cache_abs, _, _) = build_decode_step(cfg, global_batch, seq,
-                                                device="meta")
+    cache_abs = _cache_abstract(cfg, global_batch, seq)
     ca = cache_axes(cfg)
     if isinstance(cache_abs, dict):
         c_spec = {k: spec_for(tuple(v.shape), ca[k], rules, mesh)

@@ -161,12 +161,15 @@ def test_loss_is_the_global_masked_mean(tmp_path):
 
 
 def test_the_model_axis_is_not_executed(tmp_path):
-    """In a group of 4, ``make_host_mesh(model=2)`` is (2, 2).  What it
-    does not execute yet raises NotImplementedError naming the roadmap's
-    item: mamba2-370m's and jamba's train and prefill steps (Mamba-2 has
-    no head split), and every family's decode step.  The transformer
-    families' train and prefill steps build (``tests/test_torch_tp.py``
-    runs them)."""
+    """In a group of 4, ``make_host_mesh(model=2)`` is (2, 2), and nothing
+    on it is refused any more (the name is the one this test had while the
+    mesh refused the model axis): every family's train, prefill and decode
+    steps build and run once from the seeded init, each process on its
+    blocks, with finite results (the decode from a zero cache of this
+    process's blocks, ``init_cache_blocks``); hubert-xlarge, an encoder
+    over frames, has no decode and raises its ValueError, as on one
+    process.  ``tests/test_torch_tp.py``, ``test_torch_tp_ssm.py`` and
+    ``test_torch_tp_decode.py`` hold the results against JAX."""
     archs = ["olmo-1b", "granite-moe-3b-a800m", "qwen2-vl-2b",
              "hubert-xlarge", "mamba2-370m", "jamba-v0.1-52b"]
     ranks = run_ranks(4, {"kind": "model_axis", "model": 2, "archs": archs,
@@ -174,13 +177,14 @@ def test_the_model_axis_is_not_executed(tmp_path):
     for out in ranks:
         assert tuple(out["mesh"]) == (2, 2)
         for arch in archs:
-            family = get_config(arch).family
             for kind in ("train", "prefill", "decode"):
                 said = str(out[f"raised/{arch}/{kind}"])
-                if kind == "decode" or family in ("ssm", "hybrid"):
-                    assert "ROADMAP item 16" in said, (arch, kind, said)
-                else:
-                    assert said == "", (arch, kind, said)
+                if arch == "hubert-xlarge" and kind == "decode":
+                    assert said.startswith("ValueError") \
+                        and "no decode step" in said, said
+                    continue
+                assert said == "", (arch, kind, said)
+                assert bool(out[f"finite/{arch}/{kind}"]), (arch, kind)
 
 
 @pytest.fixture(scope="module")

@@ -18,11 +18,21 @@ Imports torch, numpy and ``repro_torch`` only.  Jobs:
   the experts each token kept at every routing (``recording_routes``).
 * ``prefill``: the port's ``build_prefill_step`` on the same params,
   on step 0's batch; writes this process's block of the logits.
+* ``grads``: the sharded train step's gradients up to AdamW
+  (``step._sharded_grads``) on step 0's batch, gathered whole.
+* ``decode``: the port's ``build_decode_step`` under ``rules``
+  ("default" or "long_context") for ``steps`` tokens from the whole
+  cache, lengths and tokens of an ``.npz`` (``cache/<key>``,
+  ``lengths<t>``, ``tokens<t>``), each process holding its block of the
+  cache; writes its block of each step's logits and of the cache after
+  the last.
 * ``norm``: ``global_norm`` of a tree with a split and a replicated leaf.
 * ``norm2d``: ``global_norm`` on a (2, 2) mesh of leaves split over
   ``data``, over ``model``, over both, and over neither.
 * ``model_axis``: builds the train, prefill and decode steps of each of
-  ``archs`` on a mesh with ``model`` = 2 and records what each raises.
+  ``archs`` on a mesh with ``model`` = 2, runs each once from the seeded
+  init (decode from a zero cache of this process's blocks), and records
+  what each raises and whether its results are finite.
 * ``ckpt_save``: one step from the seeded init, then ``save_sharded`` at
   step 1; writes the whole state gathered.
 * ``ckpt_restore``: ``restore_sharded`` into zero blocks; writes the whole
@@ -55,11 +65,12 @@ from repro_torch.configs import get_config
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import get_model, modules
 from repro_torch.parallel import runtime
-from repro_torch.parallel.sharding import PartitionSpec as P
+from repro_torch.parallel.sharding import (PartitionSpec as P, default_rules,
+                                           long_context_rules)
 from repro_torch.train import (AdamWConfig, TrainConfig, build_decode_step,
                                build_prefill_step, build_train_step,
-                               init_state, synthetic_batch)
-from repro_torch.train.step import step_specs
+                               init_cache_blocks, init_state, synthetic_batch)
+from repro_torch.train.step import _sharded_grads, step_specs
 from repro_torch.weights import params_from_numpy_sharded
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -184,6 +195,55 @@ def prefill(job, mesh, out):
     out["logits"] = step(params, batch).numpy()
 
 
+def rules_of(job, mesh):
+    return (long_context_rules if job.get("rules") == "long_context"
+            else default_rules)(mesh)
+
+
+def grads(job, mesh, out):
+    cfg = config(job)
+    tc = TrainConfig()
+    fn, p_spec = _sharded_grads(cfg, job["batch"], job["seq"], tc,
+                                torch.device("cpu"), mesh, rules_of(job, mesh))
+    params = state(job, cfg, mesh, tc)[0]
+    batches = np.load(job["batches"])
+    batch = {k.split("/", 1)[1]: batches[k] for k in batches.files
+             if k.startswith("0/")}
+    loss, g = fn(params, batch)
+    out["loss"] = float(loss)
+    out.update(whole(g, p_spec, mesh, "g"))
+
+
+def decode(job, mesh, out):
+    cfg = config(job)
+    rules = rules_of(job, mesh)
+    b, s = job["batch"], job["max_seq"]
+    step, (_, cache_abs, _, _) = build_decode_step(cfg, b, s, "cpu",
+                                                   mesh=mesh, rules=rules)
+    (p_spec, c_spec, _, _), _ = step_specs(cfg, "decode", mesh, b, s,
+                                           rules=rules)
+    params = params_from_numpy_sharded(
+        unflatten(dict(np.load(job["init"]))), p_spec, mesh, "cpu")
+    data = np.load(job["data"])
+    at = runtime.coords(mesh)
+
+    def block(x, spec, like):
+        return torch.tensor(np.ascontiguousarray(
+            x[runtime.local_slice(x.shape, spec, mesh, at)])).to(like.dtype)
+    if isinstance(c_spec, dict):
+        cache = {k: block(data[f"cache/{k}"], c_spec[k], cache_abs[k])
+                 for k in c_spec}
+    else:
+        cache = block(data["cache/kv"], c_spec, cache_abs)
+    for t in range(job["steps"]):
+        logits, cache = step(params, cache, data[f"lengths{t}"],
+                             data[f"tokens{t}"])
+        out[f"logits{t}"] = logits.float().numpy()
+    for k, v in (cache.items() if isinstance(cache, dict)
+                 else [("kv", cache)]):
+        out[f"cache/{k}"] = v.float().numpy()
+
+
 def norm2d(job, mesh, out):
     """Leaves 0..n-1 of shape (4, 4), each a block by its spec: whole
     arange(16) + 16·i, split over data, over model, over both, over
@@ -208,16 +268,43 @@ def norm(job, mesh, out):
 
 def model_axis(job, mesh, out):
     out["mesh"] = np.asarray(mesh.axis_sizes)
+    b, s = job["batch"], job["seq"]
     for arch in job["archs"]:
         cfg = get_config(arch, smoke=True)
-        for kind, build in (("train", build_train_step),
-                            ("prefill", build_prefill_step),
-                            ("decode", build_decode_step)):
+        tc = TrainConfig()
+        batch = synthetic_batch(cfg, 0, b, s)
+        inputs = {k: v for k, v in batch.items() if k != "targets"}
+        (p_spec, _, _), _ = step_specs(cfg, "train", mesh, b, s, tc)
+        full = get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+
+        def params():
+            return runtime.shard_tree(full, p_spec, mesh)
+
+        def train():
+            step, _ = build_train_step(cfg, b, s, tc, "cpu", mesh=mesh)
+            p = params()
+            return step(p, init_state(p, tc.adamw), batch)[2]["loss"]
+
+        def prefill():
+            step, _ = build_prefill_step(cfg, b, s, "cpu", mesh=mesh)
+            return step(params(), inputs)
+
+        def decode():
+            step, _ = build_decode_step(cfg, b, s, "cpu", mesh=mesh)
+            cache = init_cache_blocks(cfg, b, s, mesh, device="cpu")
+            return step(params(), cache, np.full(b, 3, np.int32),
+                        batch.get("tokens", np.zeros((b, s), np.int32))
+                        [:, :1])[0]
+        for kind, run in (("train", train), ("prefill", prefill),
+                          ("decode", decode)):
             try:
-                build(cfg, job["batch"], job["seq"], device="cpu", mesh=mesh)
+                res = run()
                 out[f"raised/{arch}/{kind}"] = ""
-            except NotImplementedError as e:
-                out[f"raised/{arch}/{kind}"] = str(e)
+                out[f"finite/{arch}/{kind}"] = bool(
+                    torch.isfinite(res).all())
+            except (NotImplementedError, ValueError) as e:
+                out[f"raised/{arch}/{kind}"] = f"{type(e).__name__}: {e}"
 
 
 def ckpt(job, mesh, out, save):
@@ -245,7 +332,7 @@ def ckpt(job, mesh, out, save):
 
 
 JOBS = {"train": train, "prefill": prefill, "norm": norm, "norm2d": norm2d,
-        "model_axis": model_axis,
+        "model_axis": model_axis, "grads": grads, "decode": decode,
         "ckpt_save": lambda job, mesh, out: ckpt(job, mesh, out, True),
         "ckpt_restore": lambda job, mesh, out: ckpt(job, mesh, out, False)}
 

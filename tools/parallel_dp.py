@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
 """``chip_smoke.py``'s ``[parallel dp]`` phase alone, on every card of this
 machine: the kernels' build, then the train step across processes (one a
-card, NCCL) at full olmo-1b width and the train driver under torchrun.
+card, NCCL) at full olmo-1b and mamba2-370m width, the decode step across
+processes and the train driver under torchrun.
 
-  python3 tools/parallel_dp.py [--model M]
+  python3 tools/parallel_dp.py [--model M] [--runs olmo,mamba,decode,...]
 
 On a host with four cards it runs world 4 (one process a card); on one
 card it is the phase of the full script.  With ``--model M`` the mesh is
-(cards / M, M): the same olmo-1b steps with tensor parallelism over the
-model axis, then the mesh's full-width prefill (an f32 check against one
-process, and a timed bf16 call) and a granite-moe-3b-a800m training step
-with its experts split (``[parallel tp]`` lines); the train driver, which
-runs the data axis only, is left out.  Exits non-zero where the phase
-fails.
+(cards / M, M) (``[parallel tp]`` lines): the same olmo-1b steps with
+tensor parallelism over the model axis; mamba2-370m's steps with its
+Mamba-2 heads split (an f32 step at 2 layers against the f64 one-process
+step, then timed full-width steps with K4 96 and K4-bwd 48 launches a
+step on every card); the decode of olmo-1b (the KV cache split along its
+sequence, merged by log-sum-exp) and of mamba2-370m (its heads' SSM state
+split), each in f32 with its logits gathered against the one-process
+decode, and timed in bf16; then the mesh's full-width prefill (an f32
+check against one process, and a timed bf16 call) and a
+granite-moe-3b-a800m training step with its experts split.  The train
+driver, which runs the data axis only, is left out.  ``--runs`` takes a
+comma-separated subset of olmo, mamba, decode, prefill, granite and
+driver (all by default).  Exits non-zero where the phase fails.
 """
 
 from __future__ import annotations
@@ -29,15 +37,25 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", type=int, default=1,
                     help="the mesh's model axis (it must divide the cards)")
+    ap.add_argument("--runs", default=None,
+                    help="a comma-separated subset of olmo, mamba, decode, "
+                         "prefill, granite, driver (default: all)")
     args = ap.parse_args(argv)
     import chip_smoke
+    runs = chip_smoke.DP_RUNS
+    if args.runs:
+        runs = tuple(args.runs.split(","))
+        unknown = set(runs) - set(chip_smoke.DP_RUNS)
+        if unknown:
+            ap.error(f"unknown runs {sorted(unknown)}; known: "
+                     f"{', '.join(chip_smoke.DP_RUNS)}")
     if not chip_smoke.torch.cuda.is_available():
         chip_smoke.fail("no CUDA device is available")
     t = time.perf_counter()
     chip_smoke.phase_build()
     card = chip_smoke.sh("nvidia-smi", "--query-gpu=name,power.limit",
                          "--format=csv,noheader").splitlines()[0]
-    paths = chip_smoke.phase_parallel_dp(card, args.model)
+    paths = chip_smoke.phase_parallel_dp(card, args.model, runs)
     print(f"[parallel] paths {paths}; wall with the build "
           f"{time.perf_counter() - t:.3f} s", flush=True)
     return 0
