@@ -119,17 +119,25 @@ Phases, in order; any failure exits non-zero:
    card (``torch.cuda.device_count()`` of them, spawned) in an NCCL group,
    on ``make_host_mesh()``: olmo-1b at full width through the sharded
    ``build_train_step`` (global batch 2 a card, seq 4096, remat "full":
-   the batch split by rows, params and AdamW moments as FSDP blocks), 4
-   steps, each step's time by CUDA events, each rank's peak memory, K3 32
-   and K3-bwd 16 launches a step by the counters and the profiler, and the
-   profiler's NCCL kernels and device-to-device copies.  With one card,
-   one sharded step from a state must give the one-process step's bits
-   from a clone of it; that step runs the split path of a model axis of 1
-   (heads, FFN columns, vocabulary and embedding rows in one block each,
-   ``to_model``/``from_model`` and the vocabulary-parallel loss, counted
-   on a ``[parallel tp] world 1`` line); with more, an f32 step at 2
-   layers must give one process's loss within the f32 spread, its grad
-   norm within 1e-4 and, gathered, its params within the f32 bounds.
+   the batch split by rows, params and AdamW moments as FSDP blocks, each
+   layer's weights gathered when it runs and its gradient reduce-scattered
+   in its backward), 4 steps, each step's time by CUDA events, each
+   rank's peak memory, K3 32 and K3-bwd 16 launches a step by the
+   counters and the profiler, and the profiler's NCCL kernels and
+   device-to-device copies.  With one card, one sharded step from a state
+   must give the one-process step's bits from a clone of it, and each
+   step's own peak is printed beside the other's; that step runs the split
+   path of a model axis of 1 (heads, FFN columns, vocabulary and
+   embedding rows in one block each, ``to_model``/``from_model`` and the
+   vocabulary-parallel loss, counted on a ``[parallel tp] world 1`` line,
+   with the per-layer gathers); with more, an f32 step at 2 layers must
+   give one process's loss within the f32 spread, its grad norm within
+   1e-4 and, gathered, its params within the f32 bounds.  On 2 or more
+   cards an olmo-1b step on the (pod, data, model) mesh (2, cards / 2, 1)
+   gives the data mesh's first loss on the same batch within 1e-5
+   relative; on 4 or more, phi3-medium-14b trains 3 steps at full width
+   (40 layers, global batch 4 × 4096, remat "full"); with one card both
+   print why they wait.
    Then the train driver under torchrun at SMOKE size: a crash after step
    5, the resume and an uninterrupted run, with the same losses.
    Then mamba2-370m at full width (48 layers) through the sharded train
@@ -3150,19 +3158,29 @@ def dp_bits_check(cfg, mesh, batch, what, expect):
     params = runtime.shard_tree(params, p_spec, mesh)
     state = [params, init_state(params, tc.adamw)]
     runtime.reset_counts()
-    p1, o1, m1 = sharded(*state, batch)
-    split = dict(runtime.counts)
-    p2, o2, m2 = one(twin, init_state(twin, tc.adamw), batch)
-    torch.cuda.synchronize()
+    p1, o1, m1, peak1 = own_peak(sharded, state, batch)
+    split, gathers = dict(runtime.counts), dict(runtime.gathered)
+    p2, o2, m2, peak2 = own_peak(one, [twin, init_state(twin, tc.adamw)],
+                                 batch)
     print(f"[parallel tp] world 1: the sharded {cfg.name} step on "
           f"{mesh.shape} took the split path ({what} each one block over "
           f"the model axis): " + ", ".join(f"{k} {v}"
                                            for k, v in split.items())
           + " in one step (remat \"full\" runs each layer's forward twice);"
-          " the one-process step none", flush=True)
-    if any(split[k] == 0 for k in expect) or runtime.counts != split:
+          f" {gathers['calls']} gathers over data, one layer at a time "
+          f"({gathers['bytes'] / 2**30:.3f} GiB, at most "
+          f"{gathers['peak'] / 2**30:.3f} GiB alive at once); the "
+          f"one-process step none", flush=True)
+    if any(split[k] == 0 for k in expect) or runtime.counts != split \
+            or not gathers["calls"] \
+            or runtime.gathered["calls"] != gathers["calls"]:
         fail(f"parallel tp: the world-1 sharded {cfg.name} step counted "
-             f"{split}; with the one-process step {dict(runtime.counts)}")
+             f"{split}, {gathers}; with the one-process step "
+             f"{dict(runtime.counts)}, {dict(runtime.gathered)}")
+    print(f"[parallel dp] world 1: {cfg.name} each step's own peak (its "
+          f"params, mu and nu, plus the most it allocated above the memory "
+          f"in use before it): sharded {peak1:.2f} GiB, one process "
+          f"{peak2:.2f} GiB", flush=True)
     differ = dp_same_bits({"params": p1, "opt": o1, "metrics": m1},
                           {"params": p2, "opt": o2, "metrics": m2})
     print(f"[parallel dp] world 1: one sharded {cfg.name} step from a state "
@@ -3176,6 +3194,26 @@ def dp_bits_check(cfg, mesh, batch, what, expect):
     if differ:
         fail(f"parallel dp: the world-1 sharded {cfg.name} step differs "
              f"from the one-process step in {[d[0] for d in differ]}")
+
+
+def own_peak(step, state, batch):
+    """(params, opt, metrics, GiB): ``step(*state, batch)`` and its own
+    peak: the bytes of its state (params, mu, nu, count) plus the most it
+    allocated above the memory in use before it, which holds other
+    states too (and no garbage: the cyclic collector runs first)."""
+    import gc
+
+    from repro_torch.train.optimizer import tree_leaves
+    held = sum(x.numel() * x.element_size() for tree in state
+               for x in tree_leaves(tree))
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step(*state, batch)
+    torch.cuda.synchronize()
+    return (*out, (torch.cuda.max_memory_allocated() - before + held)
+            / 2**30)
 
 
 def dp_param_diffs(a, b):
@@ -3794,10 +3832,10 @@ def dp_olmo(mesh, tag):
     TRAIN_STEPS steps timed by CUDA events with their launches on every
     rank (K3 32 and K3-bwd 16 a step), each rank's peak memory and a
     profiled step (K3 and K3-bwd kernels, NCCL kernels by collective,
-    device-to-device copies).  Returns the timed steps' launches."""
+    device-to-device copies).  Returns (the timed steps' launches, the
+    first step's loss)."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.parallel import runtime
     from repro_torch.train import (AdamWConfig, TrainConfig,
@@ -3806,8 +3844,7 @@ def dp_olmo(mesh, tag):
     from repro_torch.train.step import step_specs
     world = dist.get_world_size()
     say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
-    cfg = dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked",
-                              remat="full")
+    cfg = dp_olmo_cfg()
     b, n = 2 * mesh.shape["data"], cfg.n_layers
     batches = [synthetic_batch(cfg, i, b, DP_SEQ)
                for i in range(TRAIN_STEPS + 1)]
@@ -3827,7 +3864,7 @@ def dp_olmo(mesh, tag):
     torch.cuda.reset_peak_memory_stats()
     # The path: counts set to 0 just before, read just after.
     reset_counts()
-    times, want = [], (2 * n, n)
+    times, want, first = [], (2 * n, n), None
     for i in range(TRAIN_STEPS):
         before = (fa.launches, fa.bwd_launches)
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -3840,6 +3877,7 @@ def dp_olmo(mesh, tag):
         each = [None] * world
         dist.all_gather_object(each, got)
         loss, norm = float(m["loss"]), float(m["grad_norm"])
+        first = loss if first is None else first
         say(f"{tag} olmo-1b global batch {b} seq {DP_SEQ} step "
             f"{i}: loss={loss:.6f} grad_norm={norm:.6f}; "
             f"{times[-1]:.3f} ms by CUDA events; launches "
@@ -3893,22 +3931,191 @@ def dp_olmo(mesh, tag):
              f"NCCL {nccl} in a step, for {want} and NCCL kernels")
     del params, opt
     torch.cuda.empty_cache()
-    return totals
+    return totals, first
+
+
+def dp_olmo_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("olmo-1b"), attn_impl="chunked",
+                               remat="full")
+
+
+def sharded_init(cfg, p_spec, mesh):
+    """This process's blocks of the params ``full_params`` draws (the same
+    generator, seed and order, a leaf at a time), without the whole tree
+    on the card: each leaf is drawn whole, its block kept and the rest
+    freed."""
+    from repro_torch.models import get_model
+    from repro_torch.models.modules import materialize
+    from repro_torch.parallel import runtime
+    gen = torch.Generator("cuda").manual_seed(SEED)
+
+    def build(node, spec):
+        if isinstance(node, dict):
+            return {k: build(node[k], spec[k]) for k in sorted(node)}
+        whole = materialize(node, gen, cfg.param_dtype, "cuda")
+        return runtime.local_block(whole, spec, mesh).clone()
+    return build(get_model(cfg).specs(cfg), p_spec)
+
+
+def dp_pod(mesh, tag, loss0):
+    """On 2 or more cards, one olmo-1b step on the (pod, data, model) mesh
+    (2, cards / 2, 1) from the data mesh's initial state and on its first
+    batch (global batch 2 a card, seq 4096, remat "full"): the batch split
+    over (pod, data), the params FSDP blocks over ``data`` replicated
+    over ``pod``, the gradients reduce-scattered over ``data`` and
+    all-reduced over ``pod``.  Its loss must equal the data mesh's first
+    loss ``loss0`` within 1e-5 relative.  With one card, a line says it
+    waits for more."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import runtime
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   build_train_step, init_state,
+                                   synthetic_batch)
+    from repro_torch.train.step import step_specs
+    world = dist.get_world_size()
+    say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
+    if world < 2 or world % 2:
+        say(f"{tag} pod: the (pod, data, model) mesh waits for 2 or more "
+            f"cards ({world} here)", flush=True)
+        return None
+    pod = make_host_mesh(pod=2)
+    cfg = dp_olmo_cfg()
+    b = 2 * world
+    tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
+    step, _ = build_train_step(cfg, b, DP_SEQ, tc, mesh=pod)
+    (p_spec, _, _), _ = step_specs(cfg, "train", pod, b, DP_SEQ, tc)
+    params = runtime.shard_tree(full_params(cfg), p_spec, pod)
+    opt = init_state(params, tc.adamw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = (fa.launches, fa.bwd_launches)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    _, _, m = step(params, opt, synthetic_batch(cfg, 0, b, DP_SEQ))
+    e1.record()
+    torch.cuda.synchronize()
+    launches = (fa.launches - before[0], fa.bwd_launches - before[1])
+    loss = float(m["loss"])
+    peaks = [None] * world
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated() / 2**30)
+    err = abs(loss - loss0) / abs(loss0)
+    say(f"{tag} pod: olmo-1b on the mesh {pod.shape}, global batch {b} seq "
+        f"{DP_SEQ}, one step from the data mesh's state on its first batch: "
+        f"loss={loss:.6f} against {loss0:.6f} on {mesh.shape} (relative "
+        f"{err:.3g}, bound 1e-5); {e0.elapsed_time(e1):.3f} ms by CUDA "
+        f"events (the first step on this mesh); launches (flash_attention, "
+        f"flash_attention_bwd) {launches}; peak device memory a rank "
+        + ", ".join(f"{p:.2f}" for p in peaks) + " GiB", flush=True)
+    del params, opt
+    torch.cuda.empty_cache()
+    if not verdict(np.isfinite(loss) and err <= 1e-5):
+        fail(f"{tag}: the pod mesh's loss {loss} differs from {loss0}")
+    return launches
+
+
+PHI3 = "phi3-medium-14b"
+PHI3_TRAIN = (4, 4096)          # global batch, seq
+PHI3_STEPS = 3
+
+
+def dp_phi3(mesh, tag):
+    """On 4 or more cards, phi3-medium-14b at full width (40 layers, 14.66e9
+    params) through the sharded train step on the mesh: random weights
+    from seed 0 drawn a leaf at a time (``sharded_init``), f32 params,
+    bf16 compute, remat "full", AdamW, global batch 4 × 4096, PHI3_STEPS
+    steps: each step's loss (finite, equal on every rank), its time by CUDA
+    events, K3 80 and K3-bwd 40 launches a step on every rank, and each
+    rank's peak memory.  On fewer cards its state (16 B a param, 218 GiB)
+    does not fit: a line says so.  Returns the steps' launches, or None."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   build_train_step, init_state,
+                                   synthetic_batch)
+    from repro_torch.train.step import step_specs
+    world = dist.get_world_size()
+    say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
+    cfg = dataclasses.replace(get_config(PHI3), attn_impl="chunked",
+                              remat="full")
+    if world < 4:
+        say(f"{tag} {PHI3}: skipped on {world} card(s): its f32 params, "
+            f"gradients and AdamW moments take 16 B a param, "
+            f"{16 * cfg.param_count() / 2**30:.0f} GiB; it runs on 4 cards "
+            f"or more", flush=True)
+        return None
+    b, seq = PHI3_TRAIN
+    n = cfg.n_layers
+    tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
+    step, _ = build_train_step(cfg, b, seq, tc, mesh=mesh)
+    (p_spec, _, _), _ = step_specs(cfg, "train", mesh, b, seq, tc)
+    t0 = time.perf_counter()
+    params = sharded_init(cfg, p_spec, mesh)
+    opt = init_state(params, tc.adamw)
+    torch.cuda.synchronize()
+    say(f"{tag} {PHI3}: {cfg.param_count() / 1e9:.2f}e9 params, the blocks "
+        f"of mesh {mesh.shape} drawn in {time.perf_counter() - t0:.3f} s; "
+        f"state a rank {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
+        flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.bwd_launches = 0
+    times, losses, want = [], [], (2 * n, n)
+    for i in range(PHI3_STEPS):
+        before = (fa.launches, fa.bwd_launches)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        params, opt, m = step(params, opt, synthetic_batch(cfg, i, b, seq))
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+        got = (fa.launches - before[0], fa.bwd_launches - before[1])
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        each = [None] * world
+        dist.all_gather_object(each, (got, loss, norm))
+        say(f"{tag} {PHI3} on {mesh.shape}, global batch {b} seq {seq} "
+            f"step {i}: loss={loss:.6f} grad_norm={norm:.6f}; "
+            f"{times[-1]:.3f} ms by CUDA events; (launches (flash_attention, "
+            f"flash_attention_bwd), loss, grad norm) on each rank {each}",
+            flush=True)
+        losses.append(loss)
+        if {e[0] for e in each} != {want} or len({e[1] for e in each}) != 1 \
+                or not (np.isfinite(loss) and np.isfinite(norm)):
+            fail(f"{tag}: {PHI3} step {i}: {each}, for {want} launches and "
+                 "one finite loss")
+    peaks = [None] * world
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated() / 2**30)
+    say(f"{tag} {PHI3}: {PHI3_STEPS} steps on {mesh.shape}, "
+        + ", ".join(f"{t:.3f}" for t in times) + " ms; peak device memory "
+        "a rank " + ", ".join(f"{p:.2f}" for p in peaks) + " GiB (of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}); "
+        f"launches flash_attention={fa.launches} "
+        f"flash_attention_bwd={fa.bwd_launches}", flush=True)
+    del params, opt
+    torch.cuda.empty_cache()
+    return fa.launches, fa.bwd_launches
 
 
 # the runs of the [parallel dp] phase (``tools/parallel_dp.py --runs``):
 # prefill and granite run on a model axis above 1 only, the train driver
-# on a model axis of 1 only
-DP_RUNS = ("olmo", "mamba", "decode", "prefill", "granite", "driver")
+# on a model axis of 1 only, pod on 2 cards or more and phi3 on 4 or more
+# (each prints why it waits where it does not run)
+DP_RUNS = ("olmo", "mamba", "decode", "prefill", "granite", "pod", "phi3",
+           "driver")
 
 
 def dp_worker(rank, world, store_path, model=1, runs=DP_RUNS):
     """One process of the [parallel dp] group, on card ``rank``, on a
     (world / model, model) mesh (rank 0 prints): of ``runs``, olmo-1b's
-    and mamba2-370m's sharded train steps (``dp_olmo``,
-    ``tp_mamba_step``), the sharded decode (``tp_decode``) and, with a
-    model axis, the mesh's prefill and a granite-moe-3b-a800m training
-    step."""
+    sharded train steps (``dp_olmo``), with a model axis of 1 its step on
+    the pod mesh (``dp_pod``), phi3-medium-14b's steps (``dp_phi3``),
+    mamba2-370m's (``tp_mamba_step``), the sharded decode (``tp_decode``)
+    and, with a model axis, the mesh's prefill and a granite-moe-3b-a800m
+    training step."""
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -3927,9 +4134,21 @@ def dp_worker(rank, world, store_path, model=1, runs=DP_RUNS):
         mesh = make_host_mesh(model=model)
         say(f"{tag} {world} process(es), NCCL, one card each: host "
             f"mesh {mesh.shape}", flush=True)
-        totals = {}
+        totals, loss0 = {}, None
         if "olmo" in runs:
-            totals["olmo"] = dp_olmo(mesh, tag)
+            totals["olmo"], loss0 = dp_olmo(mesh, tag)
+        if "pod" in runs and model == 1:
+            if loss0 is None:
+                say(f"{tag} pod: needs the olmo run's first loss (--runs "
+                    "olmo,pod)", flush=True)
+            else:
+                launches = dp_pod(mesh, tag, loss0)
+                if launches:
+                    totals["pod"] = launches
+        if "phi3" in runs:
+            phi3 = dp_phi3(mesh, tag)
+            if phi3:
+                totals["phi3"] = phi3
         if "mamba" in runs:
             totals["mamba"] = tp_mamba_step(mesh, tag)
         if "decode" in runs:
@@ -4030,12 +4249,19 @@ def phase_parallel_dp(card, model=1, runs=DP_RUNS):
         if model == 1 and "driver" in runs:
             dp_driver_runs(world, tmp)
     print(f"{tag} phase wall {time.perf_counter() - t:.3f} s", flush=True)
-    where = (f"{world} process(es), model axis {model}, global batch {b}, "
-             f"{TRAIN_STEPS} steps")
-    names = {"olmo": ("olmo-1b", "flash_attention", "flash_attention_bwd"),
-             "mamba": (MAMBA, "ssd_scan", "ssd_scan_bwd")}
-    return {f"parallel {tag[10:-1]} {names[k][0]} train, {where}": {
-        names[k][1]: n[0], names[k][2]: n[1]} for k, n in totals.items()}
+    where = f"{world} process(es), model axis {model}"
+    k3 = ("flash_attention", "flash_attention_bwd")
+    names = {"olmo": (f"olmo-1b train, {where}, global batch {b}, "
+                      f"{TRAIN_STEPS} steps", k3),
+             "mamba": (f"{MAMBA} train, {where}, global batch {b}, "
+                       f"{TRAIN_STEPS} steps", ("ssd_scan", "ssd_scan_bwd")),
+             "pod": (f"olmo-1b train, {world} process(es), mesh (2, "
+                     f"{world // 2}, 1), global batch {b}, 1 step", k3),
+             "phi3": (f"{PHI3} train, {where}, global batch "
+                      f"{PHI3_TRAIN[0]}, {PHI3_STEPS} steps", k3)}
+    return {f"parallel {tag[10:-1]} {names[k][0]}": {
+        names[k][1][0]: n[0], names[k][1][1]: n[1]}
+        for k, n in totals.items()}
 
 
 def dp_driver_runs(world, tmp):

@@ -226,8 +226,10 @@ def save_sharded(store: Optional[CheckpointStore], step: int, tree: Any,
     on ``mesh``.  Every process takes part in gathering each whole tensor;
     the process of rank 0, the only one that holds the store (``store`` is
     None on the others), writes them in one ``save``, and every process
-    waits at a barrier until it has.  On a mesh without a group (one
-    process, whole tensors) it is ``store.save``."""
+    waits at a barrier until it has.  On a mesh with a ``pod`` axis, over
+    which no leaf is split, every pod gathers the same whole tensors and
+    rank 0's, at pod coordinate 0, are written.  On a mesh without a group
+    (one process, whole tensors) it is ``store.save``."""
     if mesh.group is None:
         store.save(step, tree, extra)
         return
@@ -249,8 +251,9 @@ def restore_sharded(store: Optional[CheckpointStore], like: Any,
     ``like`` a tree of this process's blocks placed by ``spec_tree`` on
     ``mesh``.  The process of rank 0 (the only one that holds ``store``)
     reads the whole tensors and sends each to the others; each copies its
-    block into ``like``'s tensor.  Returns (step, like), or (None, None) on
-    every process when nothing is stored.  On a mesh without a group it is
+    block into ``like``'s tensor (every pod of a mesh with a ``pod`` axis
+    the same blocks).  Returns (step, like), or (None, None) on every
+    process when nothing is stored.  On a mesh without a group it is
     ``store.restore(like=like)``."""
     if mesh.group is None:
         return store.restore(like=like)

@@ -21,6 +21,16 @@ MoE's own ``moe.*`` inside).
 
 Decode keeps a KV cache for the attention position of every block and
 O(1) conv and SSM state for each Mamba position, in plain PyTorch.
+
+A step across processes hands the params over as FSDP blocks split over
+``data``; each position gathers its own weights whole over ``data`` when
+it runs (``_apply_position``, ``parallel.ctx.gather_layer``), not a whole
+block at once: one jamba block at full width is a quarter of its params.
+Under ``remat == "full"`` such a step checkpoints each position in place
+of the block, so that the recompute holds one position's gathered weights
+at a time through the backward, not the whole block's; the values are
+the same.  Under "none" the saved products keep each position's gathered
+weights alive until the backward.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..parallel.ctx import constrain
+from ..parallel.ctx import constrain, gather_layer, gathers_params
 from .config import ModelConfig
 from .modules import (ParamSpec, apply_rope, attention_specs, axes_tree,
                       cross_entropy, decode_attention, decode_kv, dense_ffn,
@@ -98,9 +108,12 @@ def _ffn(cfg: ModelConfig, ffn_kind: str, lp: Params, x):
     return dense_ffn(lp["ffn"], xn, _dense_cfg(cfg))
 
 
-def _apply_position(cfg: ModelConfig, role, lp: Params, x, positions):
+def _apply_position(cfg: ModelConfig, i: int, lp: Params, x, positions):
+    """Position ``i`` of a block on its weights ``lp`` (gathered over
+    ``data`` here where the step splits them)."""
+    lp = gather_layer(lp, "blocks", f"pos{i}")
     x = constrain(x, ("act_batch", None, None))
-    mixer, ffn_kind = role
+    mixer, ffn_kind = _position_roles(cfg)[i]
     if mixer == "attn":
         with record_function("attention"):
             h, _ = gqa_attention(lp["attn"], norm(x, lp["attn_norm"], cfg),
@@ -114,9 +127,16 @@ def _apply_position(cfg: ModelConfig, role, lp: Params, x, positions):
     return x + h
 
 
-def _block(cfg: ModelConfig, x, bp: Params, positions):
-    for i, role in enumerate(_position_roles(cfg)):
-        x = _apply_position(cfg, role, bp[f"pos{i}"], x, positions)
+def _block(cfg: ModelConfig, x, bp: Params, positions,
+           remat: bool = False):
+    """One block; with ``remat``, each position under its own
+    checkpoint."""
+    for i in range(cfg.attn_every):
+        if remat:
+            x = checkpoint(_apply_position, cfg, i, bp[f"pos{i}"], x,
+                           positions, use_reentrant=False)
+        else:
+            x = _apply_position(cfg, i, bp[f"pos{i}"], x, positions)
     return x
 
 
@@ -126,15 +146,17 @@ def forward(params: Params, batch: Dict, cfg: ModelConfig):
     # Rows first, then the cast: the same values as casting the table.
     x = embed_tokens(params["embed"], batch["tokens"], cfg)
     positions = batch["positions"]
-    # As the reference: only "full" checkpoints (a whole block); every
-    # other policy runs plain.
+    # As the reference: only "full" checkpoints (a whole block, or each
+    # position where the positions gather their weights); every other
+    # policy runs plain.
     remat = torch.is_grad_enabled() and cfg.remat == "full"
+    per_position = remat and gathers_params()
     for bp in unstack_layers(params["blocks"]):
-        if remat:
+        if remat and not per_position:
             x = checkpoint(_block, cfg, x, bp, positions,
                            use_reentrant=False)
         else:
-            x = _block(cfg, x, bp, positions)
+            x = _block(cfg, x, bp, positions, per_position)
     return unembed(params, x, cfg)
 
 
@@ -178,22 +200,35 @@ def decode_step(params: Params, cache, lengths, tokens, cfg: ModelConfig):
     positions = lengths[:, None]                               # (B,1)
     roles = _position_roles(cfg)
     for blk, bp in enumerate(unstack_layers(params["blocks"])):
-        kv, conv, ssm = cache["kv"][blk], cache["conv"][blk], \
-            cache["ssm"][blk]
         m = 0
-        for i, (mixer, ffn_kind) in enumerate(roles):
-            lp = bp[f"pos{i}"]
-            if mixer == "attn":
-                xn = norm(x, lp["attn_norm"], cfg)
-                k_new, v_new = decode_kv(lp["attn"], xn, cfg)
-                k_new = apply_rope(k_new, positions, cfg.rope_theta)
-                x = x + decode_attention(lp["attn"], xn, positions, lengths,
-                                         (k_new, v_new), kv, cfg)
-            else:
-                x, new_conv, new_ssm = ssd_decode_step(
-                    lp["mamba"], x, conv[m], ssm[m], cfg)
-                conv[m].copy_(new_conv)
-                ssm[m].copy_(new_ssm)
-                m += 1
-            x = x + _ffn(cfg, ffn_kind, lp, x)
+        for i, role in enumerate(roles):
+            attn = role[0] == "attn"
+            state = (cache["kv"][blk] if attn
+                     else (cache["conv"][blk][m], cache["ssm"][blk][m]))
+            x = _decode_position(cfg, role,
+                                 gather_layer(bp[f"pos{i}"], "blocks",
+                                              f"pos{i}"),
+                                 x, positions, lengths, state)
+            m += not attn
     return unembed(params, x, cfg), cache
+
+
+def _decode_position(cfg: ModelConfig, role, lp: Params, x, positions,
+                     lengths, state):
+    """One position's decode on its weights ``lp``: ``state`` is the
+    block's KV cache (attention) or the position's (conv, SSM) state
+    (Mamba), updated in place."""
+    mixer, ffn_kind = role
+    if mixer == "attn":
+        xn = norm(x, lp["attn_norm"], cfg)
+        k_new, v_new = decode_kv(lp["attn"], xn, cfg)
+        k_new = apply_rope(k_new, positions, cfg.rope_theta)
+        x = x + decode_attention(lp["attn"], xn, positions, lengths,
+                                 (k_new, v_new), state, cfg)
+    else:
+        conv, ssm = state
+        x, new_conv, new_ssm = ssd_decode_step(lp["mamba"], x, conv, ssm,
+                                               cfg)
+        conv.copy_(new_conv)
+        ssm.copy_(new_ssm)
+    return x + _ffn(cfg, ffn_kind, lp, x)

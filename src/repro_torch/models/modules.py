@@ -35,7 +35,7 @@ from ..device import resolve_device
 from ..kernels import ops
 from ..parallel import runtime
 from ..parallel.ctx import (SeqSplit, Split, batch_group, constrain,
-                            model_split, seq_split)
+                            gather_params, model_split, seq_split)
 
 Params = Dict[str, Any]
 
@@ -114,7 +114,10 @@ def embed_tokens(table, tokens, cfg):
     dtype.  Where the step splits the table's rows over ``model``, each
     process looks the tokens up in its rows (zero for the others) and
     ``from_model`` adds: one term of each sum is not zero, so the sum is
-    exact.  A negative token counts from the end, as indexing counts it."""
+    exact.  A negative token counts from the end, as indexing counts it.
+    Where the step splits the table's columns over ``data`` (FSDP), they
+    are gathered for this use (``gather_params``)."""
+    table = gather_params(table, "embed")
     sp = model_split((cfg.vocab, cfg.d_model), ("vocab_in", "embed_in"))
     if sp is None:
         # rows first, then the cast: the same values as casting the table
@@ -129,13 +132,15 @@ def embed_tokens(table, tokens, cfg):
 
 def unembed(params: Params, x, cfg):
     """Final norm, then the (d_model, vocab) product: logits (B, S, V), or
-    this process's vocabulary columns of them (``vocab_split``)."""
-    x = norm(x, params["final_norm"], cfg)
+    this process's vocabulary columns of them (``vocab_split``).  The
+    norm's gain and the table are gathered over ``data`` for this use
+    where the step splits them (``gather_params``)."""
+    x = norm(x, gather_params(params["final_norm"], "final_norm"), cfg)
     sp = vocab_split(cfg)
     if sp is not None:
         x = runtime.to_model(x, sp.group)
-    return torch.einsum("bsd,dv->bsv", x,
-                        params["unembed"].to(cfg.compute_dtype))
+    table = gather_params(params["unembed"], "unembed")
+    return torch.einsum("bsd,dv->bsv", x, table.to(cfg.compute_dtype))
 
 
 def _all_reduce(x, op, group):

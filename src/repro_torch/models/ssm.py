@@ -20,7 +20,13 @@ over its x channels and B and C, K4 at its heads, the gated norm over the
 whole ``d_inner`` (``runtime.psum`` of the sum of squares) and ``w_out``'s
 rows, whose partial output ``from_model`` adds up (``_head_split``,
 ``_in_proj``).  Decode keeps the conv window whole on every process and
-the SSM state of its heads.
+the SSM state of its heads.  Such a step hands the params over as FSDP
+blocks split over ``data``: each layer gathers its own weights whole over
+``data`` when it runs (``_layer``, ``parallel.ctx.gather_layer``; under
+"full" again in its recompute, under "none" kept by the saved products
+until the backward), so ``w_in`` is gathered over ``data`` first and then
+handled over ``model`` as above.  Decode gathers each layer's weights in
+its turn.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from ..device import resolve_device
 from ..kernels import ops
 from ..kernels.ref import ssd_chunked_ref
 from ..parallel import runtime
-from ..parallel.ctx import Split, constrain
+from ..parallel.ctx import Split, constrain, gather_layer
 from .config import ModelConfig
 from .modules import (ParamSpec, _split, axes_tree, cross_entropy,
                       embed_tokens, materialize, norm, rmsnorm, stack_specs,
@@ -270,10 +276,16 @@ def forward(params: Params, batch: Dict, cfg: ModelConfig):
     remat = torch.is_grad_enabled() and cfg.remat == "full"
     for lp in unstack_layers(params["layers"]):
         if remat:
-            x = checkpoint(ssd_layer, lp, x, cfg, use_reentrant=False)
+            x = checkpoint(_layer, lp, x, cfg, use_reentrant=False)
         else:
-            x = ssd_layer(lp, x, cfg)
+            x = _layer(lp, x, cfg)
     return unembed(params, x, cfg)
+
+
+def _layer(lp: Params, x, cfg: ModelConfig):
+    """One layer of the stack: its weights gathered over ``data`` where the
+    step splits them (``gather_layer``), then ``ssd_layer``."""
+    return ssd_layer(gather_layer(lp, "layers"), x, cfg)
 
 
 def loss_fn(params: Params, batch: Dict, cfg: ModelConfig):
@@ -301,8 +313,9 @@ def decode_step(params: Params, cache, lengths, tokens, cfg: ModelConfig):
     carries the position."""
     x = embed_tokens(params["embed"], tokens, cfg)           # (B,1,D)
     for i, lp in enumerate(unstack_layers(params["layers"])):
-        x, conv, ssm = ssd_decode_step(lp, x, cache["conv"][i],
-                                       cache["ssm"][i], cfg)
+        x, conv, ssm = ssd_decode_step(gather_layer(lp, "layers"), x,
+                                       cache["conv"][i], cache["ssm"][i],
+                                       cfg)
         cache["conv"][i].copy_(conv)
         cache["ssm"][i].copy_(ssm)
     return unembed(params, x, cfg), cache

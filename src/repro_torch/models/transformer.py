@@ -16,7 +16,15 @@ families dense, moe (the FFN is ``modules.ffn``, a MoE FFN where
 (encoder-only: precomputed frame embeddings through a linear adapter,
 non-causal attention, no decode).  Under a step that splits the model
 over processes the layers compute on their blocks (``modules``); the
-logits are then this process's vocabulary columns.
+logits are then this process's vocabulary columns.  Such a step hands
+the params over as FSDP blocks split over ``data``, and each layer
+gathers its own weights whole over ``data`` when it runs
+(``parallel.ctx.gather_layer``), inside the function that ``checkpoint``
+wraps: under "full" and "dots_with_no_batch_dims" the gathered weights
+are freed after the layer's forward and gathered again in its recompute;
+under "none" the products saved for the backward keep each layer's
+gathered weights alive until the backward reaches it.  Decode gathers
+each layer's weights in its turn and drops them after it.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
-from ..parallel.ctx import constrain
+from ..parallel.ctx import constrain, gather_layer, gather_params
 from .config import ModelConfig
 from .modules import (ParamSpec, apply_mrope, apply_rope, attention_specs,
                       axes_tree, cross_entropy, decode_attention, decode_kv,
@@ -75,6 +83,7 @@ def logical_axes(cfg: ModelConfig) -> Params:
 def _layer(cfg: ModelConfig, x, lp: Params, positions, causal: bool):
     # Profiler ranges: a step's time by part, the remat recompute included
     # (it runs inside the backward pass, under these ranges again).
+    lp = gather_layer(lp, "layers")
     x = constrain(x, ("act_batch", None, None))
     with record_function("attention"):
         h, _ = gqa_attention(lp["attn"], norm(x, lp["attn_norm"], cfg),
@@ -113,7 +122,8 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict):
     if cfg.frontend != "none":
         # the tower is a stub in both packages: frames (B, S, D) arrive
         # precomputed and a linear adapter stands in for it
-        return batch["frames"].to(cdt) @ params["adapter"].to(cdt)
+        adapter = gather_params(params["adapter"], "adapter")
+        return batch["frames"].to(cdt) @ adapter.to(cdt)
     return embed_tokens(params["embed"], batch["tokens"], cfg)
 
 
@@ -170,13 +180,18 @@ def decode_step(params: Params, cache, lengths, tokens, cfg: ModelConfig
     if cfg.rope == "mrope":
         positions = positions[..., None].repeat(1, 1, 3)       # (B,1,3)
     for i, lp in enumerate(unstack_layers(params["layers"])):
-        xn = norm(x, lp["attn_norm"], cfg)
-        k_new, v_new = decode_kv(lp["attn"], xn, cfg)
-        if cfg.rope == "rope":
-            k_new = apply_rope(k_new, positions, cfg.rope_theta)
-        elif cfg.rope == "mrope":
-            k_new = apply_mrope(k_new, positions, cfg.mrope_sections)
-        x = x + decode_attention(lp["attn"], xn, positions, lengths,
-                                 (k_new, v_new), cache[i], cfg)
-        x = x + ffn(lp["ffn"], norm(x, lp["ffn_norm"], cfg), cfg)
+        x = _decode_layer(cfg, x, gather_layer(lp, "layers"), positions,
+                          lengths, cache[i])
     return unembed(params, x, cfg), cache
+
+
+def _decode_layer(cfg: ModelConfig, x, lp: Params, positions, lengths, kv):
+    xn = norm(x, lp["attn_norm"], cfg)
+    k_new, v_new = decode_kv(lp["attn"], xn, cfg)
+    if cfg.rope == "rope":
+        k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        k_new = apply_mrope(k_new, positions, cfg.mrope_sections)
+    x = x + decode_attention(lp["attn"], xn, positions, lengths,
+                             (k_new, v_new), kv, cfg)
+    return x + ffn(lp["ffn"], norm(x, lp["ffn_norm"], cfg), cfg)

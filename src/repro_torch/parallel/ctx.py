@@ -33,8 +33,16 @@ The scope of a step that runs across processes also carries:
   (``seq_split``): each process holds a block of the positions, and the
   attention of one token merges the blocks' partial softmaxes over the
   group that splits them.  A dimension split over two axes (``cache_seq``
-  over ``data`` and ``model`` under ``long_context_rules``) has a group of
-  its own here; a param leaf's stays refused (``model_split``).
+  over ``data`` and ``model``, or over ``pod``, ``data`` and ``model``,
+  under ``long_context_rules``) has a group of its own here; a param
+  leaf's stays refused (``model_split``);
+* the spec tree of the step's params, as ``step_specs`` lays them out:
+  the params arrive as blocks, FSDP-split over ``data``, and a layer
+  gathers its own leaves whole over ``data`` when it runs
+  (``gather_layer``; the embedding and the unembedding theirs,
+  ``gather_params``), as XLA gathers them per layer under the JAX
+  package's batch-sharded constraints.  Under remat a layer's recompute
+  gathers them again.
 """
 
 from __future__ import annotations
@@ -43,8 +51,10 @@ import contextlib
 import types
 from typing import Any, NamedTuple, Optional, Tuple
 
+from . import runtime
 from .runtime import coords
-from .sharding import Mesh, Rules, spec_axes, spec_for
+from .sharding import (Mesh, PartitionSpec, Rules, spec_axes, spec_for,
+                       tree_map)
 
 # One scope for the whole process, not one a thread: under remat the
 # backward pass runs the forward again, and on the card autograd runs it
@@ -77,11 +87,24 @@ class SeqSplit(NamedTuple):
     size: int
 
 
+class _Scope(NamedTuple):
+    mesh: Mesh
+    rules: Rules
+    batch_group: Any
+    model_group: Any
+    seq: Optional[SeqSplit]
+    params: Any
+
+
 @contextlib.contextmanager
 def activation_rules(mesh: Mesh, rules: Rules, batch_group=None,
-                     model_group=None, seq: Optional[SeqSplit] = None):
+                     model_group=None, seq: Optional[SeqSplit] = None,
+                     params=None):
+    """The scope of a step on ``mesh``: ``params``, where given, is the
+    spec tree of the blocks the step's params arrive as (the step runs
+    across processes and its layers gather them, ``gather_params``)."""
     prev = _state.ctx
-    _state.ctx = (mesh, rules, batch_group, model_group, seq)
+    _state.ctx = _Scope(mesh, rules, batch_group, model_group, seq, params)
     try:
         yield
     finally:
@@ -92,15 +115,61 @@ def constrain(x, axes: Tuple[Optional[str], ...]):
     ctx = _state.ctx
     if ctx is None:
         return x
-    mesh, rules = ctx[:2]
-    spec_for(tuple(x.shape), axes, rules, mesh)
+    spec_for(tuple(x.shape), axes, ctx.rules, ctx.mesh)
     return x
 
 
 def batch_group():
     """The group the running step splits its batch over, or None."""
     ctx = _state.ctx
-    return None if ctx is None else ctx[2]
+    return None if ctx is None else ctx.batch_group
+
+
+def gathers_params() -> bool:
+    """Whether the running step holds its params as blocks that its
+    layers gather (``gather_params``)."""
+    ctx = _state.ctx
+    return ctx is not None and ctx.params is not None
+
+
+def _gather_tree(tree, spec_tree):
+    ctx = _state.ctx
+    group = ctx.mesh.axis_group("data")
+    summed = ctx.batch_group is not None
+
+    def gather(x, spec):
+        dim = runtime.data_dim(spec)
+        return x if dim is None else runtime.gather_data(x, dim, group,
+                                                         summed)
+    return tree_map(gather, tree, spec_tree)
+
+
+def _specs(path):
+    node = _state.ctx.params
+    for key in path:
+        node = node[key]
+    return node
+
+
+def gather_params(tree, *path: str):
+    """``tree``, the sub-tree (or leaf) of the running step's params at
+    ``path`` (``"unembed"``, ...), with every leaf that the step splits
+    over ``data`` gathered whole over ``data`` for this use
+    (``runtime.gather_data``; backward, its gradient goes back to the
+    block).  Outside a step that gathers its params, ``tree`` as it is."""
+    if not gathers_params():
+        return tree
+    return _gather_tree(tree, _specs(path))
+
+
+def gather_layer(lp, *path: str):
+    """``gather_params`` for one layer ``lp`` of the stacked sub-tree at
+    ``path`` (``"layers"``; ``"blocks", "pos3"``): a layer's spec is its
+    stacked leaf's without the leading ``layers`` entry."""
+    if not gathers_params():
+        return lp
+    return _gather_tree(lp, tree_map(lambda spec: PartitionSpec(*spec[1:]),
+                                     _specs(path)))
 
 
 def model_split(shape: Tuple[int, ...],
@@ -111,9 +180,9 @@ def model_split(shape: Tuple[int, ...],
     dimension that does not divide).  At a model size of 1 a leaf whose
     spec names ``model`` is split, into one block."""
     ctx = _state.ctx
-    if ctx is None or ctx[3] is None:
+    if ctx is None or ctx.model_group is None:
         return None
-    mesh, rules, _, group, _ = ctx
+    mesh, rules, group = ctx.mesh, ctx.rules, ctx.model_group
     for dim, entry in enumerate(spec_for(tuple(shape), tuple(axes), rules,
                                          mesh)):
         if "model" in spec_axes(entry):
@@ -130,4 +199,4 @@ def seq_split() -> Optional[SeqSplit]:
     """How the running decode step splits its KV cache's sequence, or
     None: no decode step runs across processes."""
     ctx = _state.ctx
-    return None if ctx is None else ctx[4]
+    return None if ctx is None else ctx.seq

@@ -10,12 +10,19 @@ reduce-scatters itself.  Here the train and prefill steps call them
 (``models/modules.py``):
 
 * ``shard_tree`` keeps this process's block of each tensor of a whole tree;
-* ``gather_tree`` all-gathers the blocks over the ``data`` group, so that
-  each process holds its ``model`` block whole over ``data`` (the step's
-  params); ``gather_whole_tree`` gathers over both axes (checkpoints);
-* ``reduce_tree`` sums each gradient over the ``data`` group into this
-  process's block (a reduce-scatter), or whole over ``data`` where the
-  leaf is not split over it (an all-reduce);
+* ``gather_data`` gathers one param block whole over the ``data`` group
+  for one use (a layer's weights in its forward, again in its recompute,
+  and in each decode token: ``parallel.ctx.gather_params``, as XLA
+  gathers FSDP weights per layer), and backward reduce-scatters its
+  gradient into the block (or takes its block where every process
+  computed the whole batch); ``gathered`` counts these gathers, their
+  bytes, and the gathered bytes alive at once;
+* ``gather_whole_tree`` gathers a tree of blocks whole over ``data`` and
+  ``model`` (checkpoints);
+* ``reduce_tree`` sums the rest of a step's gradients over the batch's
+  processes: a leaf not split over ``data`` all-reduced over the batch's
+  group, a block (already summed over ``data`` in the backward)
+  all-reduced over ``pod``;
 * ``global_norm`` is √(Σ g²) over a tree of blocks: a leaf's blocks add up
   over every axis that splits it, and a leaf replicated over an axis
   counts once;
@@ -44,7 +51,8 @@ reduce-scatters itself.  Here the train and prefill steps call them
   on its own part (the gated norm's sum of squares over a split
   ``d_inner``): forward and backward both sum over the group;
 * ``axes_group`` is the group of the processes that split one dimension
-  over several axes (a KV cache's sequence over ``data`` and ``model``).
+  over several axes (the batch over ``pod`` and ``data``, a KV cache's
+  sequence over ``data`` and ``model`` or over all three).
 
 A leaf is split over an axis when its spec names the axis (``spec_for``),
 whatever the axis's size: at one process each collective is a copy, so a
@@ -55,13 +63,17 @@ sequence (``models/modules.py``), so a run can show that it took the split
 path.
 The collectives are ``all_gather_into_tensor``, ``reduce_scatter_tensor``
 and ``all_reduce``, which both the gloo and the NCCL backends run; a
-dimension other than 0 is moved to the front first.
+dimension other than 0 is moved to the front first (a copy; a block
+whose dimension 0 is the split one, as most of a layer's weights are,
+goes to the collective as it is).
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import warnings
+import weakref
 from datetime import timedelta
 from typing import Optional, Tuple
 
@@ -121,24 +133,37 @@ counts = {"to_model": 0, "from_model": 0, "vocab_loss": 0,
           "gather_blocks": 0, "psum": 0, "seq_merge": 0}
 
 
+# gather_data's gathers: their number, their bytes, and the bytes of the
+# gathered tensors alive now and at most since the last reset
+gathered = {"calls": 0, "bytes": 0, "live": 0, "peak": 0}
+# a gathered tensor may be freed on autograd's device thread
+_gathered_lock = threading.Lock()
+
+
 def reset_counts() -> None:
-    for k in counts:
-        counts[k] = 0
+    """Zero ``counts`` and ``gathered`` (its ``live`` bytes stay: they
+    are tensors that still exist)."""
+    with _gathered_lock:
+        for k in counts:
+            counts[k] = 0
+        for k in ("calls", "bytes"):
+            gathered[k] = 0
+        gathered["peak"] = gathered["live"]
 
 
 def check_executable(mesh: Mesh) -> None:
     """Raise unless the mesh's processes can run it: one process a device,
-    and no axis but ``data`` and ``model`` larger than 1."""
+    and no axis but ``pod``, ``data`` and ``model`` larger than 1."""
     n = dist.get_world_size(mesh.group)
     if n != mesh.size:
         raise ValueError(f"a mesh of {mesh.size} devices in a group of {n} "
                          "processes")
     wide = {a: s for a, s in mesh.shape.items()
-            if a not in ("data", "model") and s > 1}
+            if a not in ("pod", "data", "model") and s > 1}
     if wide:
         raise NotImplementedError(
-            f"mesh axes {wide}: only the data and model axes are executed "
-            "(ROADMAP item 16)")
+            f"mesh axes {wide}: only the pod, data and model axes are "
+            "executed")
 
 
 def rank(mesh: Mesh) -> int:
@@ -159,12 +184,16 @@ def coords(mesh: Mesh):
 def axes_group(mesh: Mesh, axes: Tuple[str, ...]):
     """The group of the processes that split one dimension over ``axes``
     (this process's, in the order of the blocks: row-major over the axes'
-    coordinates): one axis's group, or the mesh's group where ``axes``
-    hold every axis larger than 1."""
+    coordinates): one axis's group, the mesh's group where ``axes`` hold
+    every axis larger than 1, or the group ``make_host_mesh`` built for
+    them (``("pod", "data")``, the batch's)."""
+    axes = tuple(axes)
     if len(axes) == 1:
         return mesh.axis_group(axes[0])
     if all(a in axes for a, s in mesh.shape.items() if s > 1):
         return mesh.group
+    if axes in mesh.axis_groups:
+        return mesh.axis_groups[axes]
     raise NotImplementedError(f"a dimension split over {axes} on a mesh "
                               f"{mesh.shape}")
 
@@ -219,39 +248,17 @@ def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
-def gather_tree(local_tree, spec_tree, mesh: Mesh):
-    """Each block gathered whole over the ``data`` group (an all-gather
-    along the dimension split over ``data``, blocks in coordinate order);
-    a leaf's ``model`` block stays a block.  A leaf not split over
-    ``data`` is returned as it is."""
-    group = mesh.axis_group("data")
-
-    def gather(x, spec):
-        dim = data_dim(spec)
-        return x if dim is None else _gather(x, dim, group)
-    return tree_map(gather, local_tree, spec_tree)
-
-
 def gather_whole_tree(local_tree, spec_tree, mesh: Mesh):
-    """The whole tensors from every process's blocks: gathered over
-    ``data``, then over ``model``."""
-    group = mesh.axis_group("model")
-
+    """The whole tensors from every process's blocks: each gathered over
+    ``data``, then over ``model`` (blocks in coordinate order); a leaf is
+    never split over ``pod``."""
     def gather(x, spec):
-        dim = axis_dim(spec, "model")
-        return x if dim is None else _gather(x, dim, group)
-    return tree_map(gather, gather_tree(local_tree, spec_tree, mesh),
-                    spec_tree)
-
-
-def data_block(x: torch.Tensor, spec: PartitionSpec, mesh: Mesh):
-    """A view of this process's block over ``data`` of ``x``, a tensor that
-    is whole over ``data`` (and may be a block over ``model``)."""
-    dim = data_dim(spec)
-    if dim is None:
+        for axis in ("data", "model"):
+            dim = axis_dim(spec, axis)
+            if dim is not None:
+                x = _gather(x, dim, mesh.axis_group(axis))
         return x
-    k = x.shape[dim] // mesh.shape["data"]
-    return x.narrow(dim, coords(mesh)["data"] * k, k)
+    return tree_map(gather, local_tree, spec_tree)
 
 
 def _reduce_scatter(g: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -264,18 +271,20 @@ def _reduce_scatter(g: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
-def reduce_tree(grads, spec_tree, mesh: Mesh):
-    """Each process's gradients (whole over ``data``) summed over the
-    ``data`` group: into this process's block where the leaf is split over
-    ``data`` (a reduce-scatter), whole over ``data`` where it is not (an
-    all-reduce, in place)."""
-    group = mesh.axis_group("data")
+def reduce_tree(grads, spec_tree, mesh: Mesh, batch_axes: Tuple[str, ...]):
+    """The gradients of a step whose batch is split over ``batch_axes``
+    (``()`` where every process computed the whole batch) summed over
+    them, in place: a leaf split over ``data`` is already its block summed
+    over ``data`` (``gather_data``'s backward) and is all-reduced over the
+    other batch axes (``pod``); a leaf that every ``data`` process holds
+    whole is all-reduced over the batch's group."""
+    rest = tuple(a for a in batch_axes if a != "data")
 
     def reduce(g, spec):
-        dim = data_dim(spec)
-        if dim is not None:
-            return _reduce_scatter(g, dim, group)
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+        axes = rest if data_dim(spec) is not None else batch_axes
+        if axes:
+            dist.all_reduce(g, op=dist.ReduceOp.SUM,
+                            group=axes_group(mesh, axes))
         return g
     return tree_map(reduce, grads, spec_tree)
 
@@ -287,7 +296,7 @@ def global_norm(leaves, specs, mesh: Mesh) -> torch.Tensor:
     and counts once.  The leaves' sums are then added in order, as the
     one-process step adds them."""
     sq = [torch.sum(torch.square(g.float())) for g in leaves]
-    for axis in ("data", "model"):
+    for axis in ("pod", "data", "model"):
         split = [i for i, spec in enumerate(specs)
                  if axis_dim(spec, axis) is not None]
         if split:
@@ -315,6 +324,32 @@ class _GatherBlocks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return _reduce_scatter(dy, ctx.dim, ctx.group), None, None
+
+
+def _release(nbytes: int) -> None:
+    with _gathered_lock:
+        gathered["live"] -= nbytes
+
+
+def gather_data(x: torch.Tensor, dim: int, group,
+                summed: bool) -> torch.Tensor:
+    """A param block (split over ``data`` along ``dim``) gathered whole
+    over the ``data`` group for one use.  Backward, the block's gradient:
+    where each process computed its own rows of the batch (``summed``),
+    the sum of every process's gradient of the whole (a reduce-scatter);
+    where every process computed the whole batch, its block of the (equal)
+    whole gradient.  Counted in ``gathered``: the tensor's bytes stay
+    ``live`` until its storage is freed (also where remat's recompute
+    holds it through a detached alias)."""
+    y = (_GatherBlocks if summed else _GatherModel).apply(x, dim, group)
+    nbytes = y.numel() * y.element_size()
+    with _gathered_lock:
+        gathered["calls"] += 1
+        gathered["bytes"] += nbytes
+        gathered["live"] += nbytes
+        gathered["peak"] = max(gathered["peak"], gathered["live"])
+    weakref.finalize(y.untyped_storage(), _release, nbytes)
+    return y
 
 
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:

@@ -39,13 +39,16 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 def tree_unflatten(like, leaves):
     """A nested dict shaped like ``like`` with ``leaves`` in
     ``tree_leaves`` order."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
-    return build(like)
+
+def _unflatten(node, it):
+    # not a closure: a recursive closure is a reference cycle that would
+    # keep ``leaves`` (a step's gradients) alive until the cyclic collector
+    # runs
+    if isinstance(node, dict):
+        return {k: _unflatten(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def clone_tree(tree):

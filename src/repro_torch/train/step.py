@@ -18,14 +18,16 @@ builders return as ``in_shardings``/``out_shardings`` come from
 runs (one that carries a process group: ``make_host_mesh`` in a group),
 the train and prefill steps execute its ``data`` and ``model`` axes as
 the JAX steps under ``jax.jit(in_shardings=...)`` do: the batch split by
-rows over ``data``, params and AdamW moments held as blocks over both
-axes (FSDP over ``data``; heads, kv heads, FFN columns, experts,
-Mamba-2 heads and vocabulary over ``model``), and each layer computing on
-its blocks (``_sharded_train_step``, ``_sharded_prefill_step``,
-``models/modules``, ``models/ssm``).  So does the decode step
-(``_sharded_decode_step``), with the KV cache split along its sequence
-over the group ``cache_seq`` names and each token's attention merged over
-it by log-sum-exp.
+rows over ``data`` (over ``pod`` and ``data`` on a mesh with a ``pod``
+axis), params and AdamW moments held as blocks over ``data`` and
+``model`` (FSDP over ``data``, gathered one layer at a time where the
+layer runs; heads, kv heads, FFN columns, experts, Mamba-2 heads and
+vocabulary over ``model``) and replicated over ``pod``, and each layer
+computing on its blocks (``_sharded_train_step``,
+``_sharded_prefill_step``, ``models/modules``, ``models/ssm``).  So does
+the decode step (``_sharded_decode_step``), with the KV cache split along
+its sequence over the group ``cache_seq`` names and each token's
+attention merged over it by log-sum-exp.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from ..parallel import runtime
 from ..parallel.ctx import SeqSplit, activation_rules
 from ..parallel.sharding import (Mesh, PartitionSpec as P, Rules,
                                  default_rules, shard_shape, spec_axes,
-                                 spec_for, tree_map, tree_specs)
+                                 spec_for, tree_specs)
 from .optimizer import (AdamWConfig, apply_updates, init_state,
                         tree_leaves, tree_unflatten)
 
@@ -81,19 +83,38 @@ def _runs(mesh: Optional[Mesh]) -> bool:
 
 
 def _batch_rows(spec, mesh: Mesh, global_batch: int, parts: int = 1):
-    """(whether the batch is split over ``data``, the rows of each of
-    ``parts`` parts this process takes, the first of them within a
-    part), from the spec of a tensor whose rows are the batch's.  Where
-    the global batch does not divide over ``data``, ``spec_for``
+    """(the mesh axes that split the batch, ``()`` where it is whole; the
+    rows of each of ``parts`` parts this process takes; the first of them
+    within a part), from the spec of a tensor whose rows are the
+    batch's.  The rows split over ``data``, or over ``pod`` and ``data``,
+    by the coordinate row-major over those axes, as ``spec_for`` lays
+    them out.  Where the global batch does not divide, ``spec_for``
     replicates it, as JAX does, and every process takes every row; the
-    ``model`` processes of one ``data`` coordinate take the same rows."""
-    split = runtime.data_dim(spec) == 0
-    n = mesh.shape["data"] if split else 1
+    ``model`` processes of one batch coordinate take the same rows."""
+    axes = spec_axes(spec[0]) if len(spec) else ()
+    at, n = _block_of(mesh, axes)
     if global_batch % (parts * n):
         raise ValueError(f"a global batch of {global_batch} does not split "
                          f"into {parts} microbatches over {n} processes")
     rows = global_batch // (parts * n)
-    return split, rows, (runtime.coords(mesh)["data"] * rows if split else 0)
+    return axes, rows, at * rows
+
+
+def _block_of(mesh: Mesh, axes):
+    """(this process's block, the number of blocks) of a dimension split
+    over ``axes``: blocks numbered row-major over the axes' coordinates,
+    as ``local_slice`` numbers them."""
+    at, n = 0, 1
+    here = runtime.coords(mesh)
+    for a in axes:
+        at, n = at * mesh.shape[a] + here[a], n * mesh.shape[a]
+    return at, n
+
+
+def _batch_group(mesh: Mesh, axes):
+    """The group of the processes that split the batch over ``axes``, or
+    None where it is whole."""
+    return runtime.axes_group(mesh, axes) if axes else None
 
 
 def batch_specs(cfg: ModelConfig, batch_abstract: Dict, rules: Rules,
@@ -213,27 +234,37 @@ def _sharded_train_step(cfg: ModelConfig, global_batch: int, seq: int,
     ``params`` and ``opt_state``'s ``mu`` and ``nu`` are this process's
     blocks, laid out by ``step_specs(cfg, "train", ...)`` (each of shape
     ``shard_shape``); ``count`` is whole.  ``batch`` is the whole global
-    batch; each process takes its rows, split over ``data`` only (the
-    processes of one ``data`` coordinate hold the same rows).  Where the
-    global batch does not divide over ``data``, ``spec_for`` replicates
-    it, as JAX does, and every process computes the whole batch.
+    batch; each process takes its rows, split over ``data`` (over ``pod``
+    and ``data`` on a mesh with a ``pod`` axis; the processes of one such
+    coordinate hold the same rows).  Where the global batch does not
+    divide, ``spec_for`` replicates it, as JAX does, and every process
+    computes the whole batch.
 
     * Microbatch i is rows [i·B/m, (i+1)·B/m) of the global batch, as in
       the JAX step, and this process takes its share of it: rows i·B/m +
-      d·B/(m·n) onwards, B/(m·n) of them, at ``data`` coordinate d of n.
+      d·B/(m·n) onwards, B/(m·n) of them, at batch coordinate d of n.
       The MoE's capacity is that of the whole microbatch
       (``models/modules.py``, ``moe_ffn``).
-    * The params are gathered whole over ``data`` for the step
-      (transient); each stays this process's block over ``model``, and
-      the layers compute on those blocks (``models/modules.py``).
+    * The params go to the model as this process's blocks, and each
+      layer gathers its own leaves whole over ``data`` when it runs (in
+      its forward, and again in its recompute under remat), as do the
+      embedding and the unembedding (``parallel.ctx.gather_params``);
+      each stays this process's block over ``model``, and the layers
+      compute on those blocks (``models/modules.py``).  No process holds
+      more than one layer's gathered weights at once under remat "full"
+      (under "none" the saved products keep them until the backward).
     * The loss of a microbatch is its global masked mean, Σ sum_r / Σ
-      count_r over the ``data`` group (the vocabulary-parallel loss gives
+      count_r over the batch's group (the vocabulary-parallel loss gives
       every ``model`` process the whole sums of its rows): each process
       backpropagates sum_r / Σ count_r, so the gradients summed over
-      ``data`` are the global gradient.
-    * The gradients are summed over ``data`` into this process's blocks
-      (``reduce_tree``), divided by m, and AdamW updates the blocks in
-      place (``apply_updates``: elementwise).  A leaf split over
+      the batch's processes are the global gradient.
+    * The gradient of a leaf split over ``data`` leaves the backward as
+      this process's block, summed over ``data`` one layer at a time (a
+      reduce-scatter, ``runtime.gather_data``); with microbatches the
+      blocks add up over them.  Then ``reduce_tree`` all-reduces each
+      block over ``pod`` and each leaf not split over ``data`` over the
+      batch's group.  The sum is divided by m, and AdamW updates the
+      blocks in place (``apply_updates``: elementwise).  A leaf split over
       ``model`` has its block's gradient; one that every ``model``
       process holds whole has the whole gradient, the same on each.  A
       leaf that the ``model`` processes each use on their own part
@@ -266,51 +297,46 @@ def _sharded_grads(cfg: ModelConfig, global_batch: int, seq: int,
                    rules: Rules):
     """(grads, p_spec): ``grads(params, batch)`` is ``_sharded_train_step``
     up to AdamW: (the loss, this process's blocks of the gradient summed
-    over ``data`` and over the microbatches, not yet divided by their
-    count)."""
+    over the batch's processes and over the microbatches, not yet divided
+    by their count)."""
     runtime.check_executable(mesh)
     model = get_model(cfg)
     (p_spec, _, b_spec), _ = step_specs(cfg, "train", mesh, global_batch,
                                         seq, tc, rules)
-    data, m = mesh.axis_group("data"), tc.microbatches
-    split, rows, first = _batch_rows(b_spec["positions"], mesh,
-                                     global_batch, m)
+    m = tc.microbatches
+    axes, rows, first = _batch_rows(b_spec["positions"], mesh,
+                                    global_batch, m)
+    group = _batch_group(mesh, axes)
 
     def part(batch, i):
         at = i * (global_batch // m) + first
         return {k: torch.as_tensor(v[at:at + rows], device=dev)
                 for k, v in batch.items()}
 
-    def value_and_grad(full, batch):
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(full)]
+    def value_and_grad(params, batch):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         # the backward pass runs in the scope too: remat runs the forward
-        # again there
-        with activation_rules(mesh, rules, data if split else None,
-                              mesh.axis_group("model")):
-            logits = model.forward(tree_unflatten(full, leaves), batch, cfg)
+        # again there, and gathers the layer's weights again
+        with activation_rules(mesh, rules, group, mesh.axis_group("model"),
+                              params=p_spec):
+            logits = model.forward(tree_unflatten(params, leaves), batch,
+                                   cfg)
             total, count = cross_entropy_terms(logits, batch["targets"],
                                                vocab_split(cfg))
-            if split:
-                count = runtime.all_sum(count, data)
+            if group is not None:
+                count = runtime.all_sum(count, group)
             loss = total / count.clamp(min=1.0)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
-        if split:
-            loss = runtime.all_sum(loss, data)
+        if group is not None:
+            loss = runtime.all_sum(loss, group)
         return loss.detach(), grads
 
     def grads(params, batch):
-        with torch.no_grad():
-            full = runtime.gather_tree(params, p_spec, mesh)
         loss, g = _accumulate(
-            lambda i: value_and_grad(full, part(batch, i)), m, dev)
-        del full
+            lambda i: value_and_grad(params, part(batch, i)), m, dev)
         g = tree_unflatten(params, list(g))
-        if split:
-            return loss, runtime.reduce_tree(g, p_spec, mesh)
-        return loss, tree_map(lambda x, spec: runtime.data_block(x, spec,
-                                                                 mesh),
-                              g, p_spec)
+        return loss, runtime.reduce_tree(g, p_spec, mesh, axes)
 
     return grads, p_spec
 
@@ -319,26 +345,24 @@ def _sharded_prefill_step(cfg: ModelConfig, global_batch: int, seq: int,
                           dev: torch.device, mesh: Mesh, rules: Rules):
     """The prefill step on a mesh that runs, as ``_sharded_train_step``
     lays it out: ``params`` are this process's blocks (``step_specs(cfg,
-    "prefill", ...)``), gathered whole over ``data`` for the call, and
-    each process takes its rows of the whole ``batch``.  Returns this
+    "prefill", ...)``), each layer's gathered over ``data`` when it runs,
+    and each process takes its rows of the whole ``batch``.  Returns this
     process's block of the last token's logits, as the JAX step's
-    ``out_shardings`` lays them out: its rows over ``data``, its
+    ``out_shardings`` lays them out: its rows over the batch's axes, its
     vocabulary columns over ``model``."""
     runtime.check_executable(mesh)
     model = get_model(cfg)
     (p_spec, b_spec), _ = step_specs(cfg, "prefill", mesh, global_batch,
                                      seq, rules=rules)
-    split, rows, first = _batch_rows(b_spec["positions"], mesh,
-                                     global_batch)
+    axes, rows, first = _batch_rows(b_spec["positions"], mesh, global_batch)
 
     def prefill_step(params, batch):
         batch = {k: torch.as_tensor(v[first:first + rows], device=dev)
                  for k, v in batch.items()}
         with torch.no_grad(), activation_rules(
-                mesh, rules, mesh.axis_group("data") if split else None,
-                mesh.axis_group("model")):
-            full = runtime.gather_tree(params, p_spec, mesh)
-            logits = model.forward(full, batch, cfg)
+                mesh, rules, _batch_group(mesh, axes),
+                mesh.axis_group("model"), params=p_spec):
+            logits = model.forward(params, batch, cfg)
         return logits[:, -1, :]
 
     return prefill_step
@@ -424,44 +448,39 @@ def build_decode_step(cfg: ModelConfig, global_batch: int, max_seq: int,
 
 def _seq_split(kv_spec, mesh: Mesh) -> SeqSplit:
     """How a KV cache laid out by ``kv_spec`` (its dimension 3 is
-    ``cache_seq``) splits its sequence: over the axes its entry names,
-    block numbered row-major over their coordinates, as ``local_slice``
-    numbers them; no group where the sequence is whole."""
+    ``cache_seq``) splits its sequence: over the axes its entry names
+    (``_block_of``); no group where the sequence is whole."""
     axes = spec_axes(kv_spec[3] if len(kv_spec) > 3 else None)
     if not axes:
         return SeqSplit(None, 0, 1)
-    at, size = 0, 1
-    here = runtime.coords(mesh)
-    for a in axes:
-        at, size = at * mesh.shape[a] + here[a], size * mesh.shape[a]
-    return SeqSplit(runtime.axes_group(mesh, axes), at, size)
+    return SeqSplit(runtime.axes_group(mesh, axes), *_block_of(mesh, axes))
 
 
 def _sharded_decode_step(cfg: ModelConfig, global_batch: int, max_seq: int,
                          dev: torch.device, mesh: Mesh, rules: Rules):
     """The decode step on a mesh that runs, laid out by ``step_specs(cfg,
     "decode", ...)`` as the JAX step under ``jax.jit(in_shardings=...,
-    out_shardings=...)``: ``params`` are this process's blocks, gathered
-    whole over ``data`` for the call; ``cache`` is this process's block of
-    the cache (``init_cache_blocks``), updated in place; ``lengths`` and
-    ``tokens`` are whole, and each process takes its rows where the batch
-    splits over ``data``.  Returns (this process's block of the logits:
-    its rows over ``data``, its vocabulary columns over ``model``;
-    ``cache``).
+    out_shardings=...)``: ``params`` are this process's blocks, each
+    layer's gathered over ``data`` in its turn at every token; ``cache`` is
+    this process's block of the cache (``init_cache_blocks``), updated in
+    place; ``lengths`` and ``tokens`` are whole, and each process takes
+    its rows where the batch splits over ``data`` (or ``pod`` and
+    ``data``).  Returns (this process's block of the logits: its rows over
+    the batch's axes, its vocabulary columns over ``model``; ``cache``).
 
     The KV cache holds positions [s0, s1) of this process's rows for
     every kv head (``cache_seq`` over ``model`` under ``default_rules``;
-    over ``data`` and ``model``, with the batch whole, under
-    ``long_context_rules``), and each layer's attention merges the blocks
-    over the group that splits them (``modules.decode_attention``).  The
-    Mamba-2 positions hold the whole conv window and the SSM state of
-    their heads (``models/ssm.py``)."""
+    over ``data`` and ``model``, or ``pod``, ``data`` and ``model``, with
+    the batch whole, under ``long_context_rules``), and each layer's
+    attention merges the blocks over the group that splits them
+    (``modules.decode_attention``).  The Mamba-2 positions hold the whole
+    conv window and the SSM state of their heads (``models/ssm.py``)."""
     runtime.check_executable(mesh)
     model = get_model(cfg)
     (p_spec, c_spec, l_spec, _), _ = step_specs(cfg, "decode", mesh,
                                                 global_batch, max_seq,
                                                 rules=rules)
-    split, rows, first = _batch_rows(l_spec, mesh, global_batch)
+    axes, rows, first = _batch_rows(l_spec, mesh, global_batch)
     seq = _seq_split(c_spec.get("kv", P()) if isinstance(c_spec, dict)
                      else c_spec, mesh)
 
@@ -469,10 +488,9 @@ def _sharded_decode_step(cfg: ModelConfig, global_batch: int, max_seq: int,
         lengths = torch.as_tensor(lengths[first:first + rows], device=dev)
         tokens = torch.as_tensor(tokens[first:first + rows], device=dev)
         with torch.no_grad(), activation_rules(
-                mesh, rules, mesh.axis_group("data") if split else None,
-                mesh.axis_group("model"), seq):
-            full = runtime.gather_tree(params, p_spec, mesh)
-            return model.decode_step(full, cache, lengths, tokens, cfg)
+                mesh, rules, _batch_group(mesh, axes),
+                mesh.axis_group("model"), seq, params=p_spec):
+            return model.decode_step(params, cache, lengths, tokens, cfg)
 
     return serve_step
 

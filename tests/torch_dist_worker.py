@@ -33,6 +33,10 @@ Imports torch, numpy and ``repro_torch`` only.  Jobs:
   ``archs`` on a mesh with ``model`` = 2, runs each once from the seeded
   init (decode from a zero cache of this process's blocks), and records
   what each raises and whether its results are finite.
+* ``gathers``: the train step (remat "full" and "none"), the prefill and
+  one decode token from the seeded init, each with ``runtime.gathered``
+  zeroed before it: writes the gathers' count, bytes, the most bytes
+  alive at once and the bytes still alive after it.
 * ``ckpt_save``: one step from the seeded init, then ``save_sharded`` at
   step 1; writes the whole state gathered.
 * ``ckpt_restore``: ``restore_sharded`` into zero blocks; writes the whole
@@ -40,8 +44,9 @@ Imports torch, numpy and ``repro_torch`` only.  Jobs:
 * ``seq``: the jobs of ``jobs`` one after another in the same group, the
   results of each under ``<its name>/``.
 
-A job runs on ``make_host_mesh(model=job["model"])`` (``model`` 1 where
-it names none), one mesh of each shape for the processes' lifetime.
+A job runs on ``make_host_mesh(model=job["model"], pod=job["pod"])``
+(``model`` and ``pod`` 1 where it names none), one mesh of each shape for
+the processes' lifetime.
 """
 
 import contextlib
@@ -50,6 +55,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from datetime import timedelta
 from pathlib import Path
 from unittest import mock
@@ -307,6 +313,49 @@ def model_axis(job, mesh, out):
                 out[f"raised/{arch}/{kind}"] = f"{type(e).__name__}: {e}"
 
 
+def gathers(job, mesh, out):
+    cfg = config(job)
+    b, s = job["batch"], job["seq"]
+    batch = synthetic_batch(cfg, 0, b, s)
+    inputs = {k: v for k, v in batch.items() if k != "targets"}
+    tc = TrainConfig()
+    (p_spec, _, _), _ = step_specs(cfg, "train", mesh, b, s, tc)
+    full = get_model(cfg).init(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def train(remat):
+        c = dataclasses.replace(cfg, remat=remat)
+        step, _ = build_train_step(c, b, s, tc, "cpu", mesh=mesh)
+        params = runtime.shard_tree(full, p_spec, mesh)
+        return lambda: step(params, init_state(params, tc.adamw), batch)
+
+    def prefill():
+        step, _ = build_prefill_step(cfg, b, s, "cpu", mesh=mesh)
+        params = runtime.shard_tree(full, p_spec, mesh)
+        return lambda: step(params, inputs)
+
+    def decode():
+        step, _ = build_decode_step(cfg, b, s, "cpu", mesh=mesh)
+        params = runtime.shard_tree(full, p_spec, mesh)
+        cache = init_cache_blocks(cfg, b, s, mesh, device="cpu")
+        return lambda: step(params, cache, np.full(b, 3, np.int32),
+                            batch["tokens"][:, :1])
+    for kind, make in (("train_full", lambda: train("full")),
+                       ("train_none", lambda: train("none")),
+                       ("prefill", prefill), ("decode", decode)):
+        run = make()
+        runtime.reset_counts()
+        run()
+        for k in ("calls", "bytes", "peak"):
+            out[f"{kind}/{k}"] = runtime.gathered[k]
+        # gloo's worker thread may hold the last collective's output for a
+        # moment after the call returns: wait up to 2 s for its release
+        dist.barrier()
+        deadline = time.monotonic() + 2
+        while runtime.gathered["live"] and time.monotonic() < deadline:
+            time.sleep(0.01)
+        out[f"{kind}/live"] = runtime.gathered["live"]
+
+
 def ckpt(job, mesh, out, save):
     cfg = config(job)
     tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
@@ -333,6 +382,7 @@ def ckpt(job, mesh, out, save):
 
 JOBS = {"train": train, "prefill": prefill, "norm": norm, "norm2d": norm2d,
         "model_axis": model_axis, "grads": grads, "decode": decode,
+        "gathers": gathers,
         "ckpt_save": lambda job, mesh, out: ckpt(job, mesh, out, True),
         "ckpt_restore": lambda job, mesh, out: ckpt(job, mesh, out, False)}
 
@@ -344,10 +394,11 @@ def run_job(job, out, meshes):
             run_job(sub, res, meshes)
             out.update({f"{sub['name']}/{k}": v for k, v in res.items()})
         return
-    model = job.get("model", 1)
-    if model not in meshes:
-        meshes[model] = make_host_mesh(model=model, device="cpu")
-    JOBS[job["kind"]](job, meshes[model], out)
+    shape = (job.get("pod", 1), job.get("model", 1))
+    if shape not in meshes:
+        meshes[shape] = make_host_mesh(model=shape[1], pod=shape[0],
+                                       device="cpu")
+    JOBS[job["kind"]](job, meshes[shape], out)
 
 
 def main():

@@ -18,9 +18,17 @@ split), each in f32 with its logits gathered against the one-process
 decode, and timed in bf16; then the mesh's full-width prefill (an f32
 check against one process, and a timed bf16 call) and a
 granite-moe-3b-a800m training step with its experts split.  The train
-driver, which runs the data axis only, is left out.  ``--runs`` takes a
-comma-separated subset of olmo, mamba, decode, prefill, granite and
-driver (all by default).  Exits non-zero where the phase fails.
+driver, which runs the data axis only, is left out.  On 2 cards or more
+(``pod``, model axis 1) an olmo-1b step on the (pod, data, model) mesh
+(2, cards / 2, 1) is held to the data mesh's first loss on the same
+batch; on 4 or more (``phi3``) phi3-medium-14b trains 3 steps at full
+width on the mesh (global batch 4 × 4096): each rank's peak, each step's
+time, K3 80 and K3-bwd 40 launches a step on every rank.  ``--runs``
+takes a comma-separated subset of olmo, mamba, decode, prefill, granite,
+pod, phi3 and driver (all by default; pod needs olmo).  Exits non-zero
+where the phase fails.  On a host with four cards:
+
+  python3 tools/parallel_dp.py --runs olmo,pod,phi3
 """
 
 from __future__ import annotations
@@ -39,7 +47,8 @@ def main(argv=None) -> int:
                     help="the mesh's model axis (it must divide the cards)")
     ap.add_argument("--runs", default=None,
                     help="a comma-separated subset of olmo, mamba, decode, "
-                         "prefill, granite, driver (default: all)")
+                         "prefill, granite, pod, phi3, driver (default: "
+                         "all)")
     args = ap.parse_args(argv)
     import chip_smoke
     runs = chip_smoke.DP_RUNS
