@@ -112,9 +112,10 @@ Phases, in order; any failure exits non-zero:
    function's result bit for bit, and is timed;
    ``examples/torch_serve_paged.py`` prints its twin's line; and the
    dry-run of every (arch × shape) cell on both production meshes
-   (``python -m repro_torch.launch.dryrun --all --both-meshes --out ""``,
-   host work on meta tensors, in a subprocess started after the timed
-   work) prints no FAIL.
+   (``python -m repro_torch.launch.dryrun --all --out ""`` and with
+   ``--multi-pod``: one device's step on meta tensors in a fake process
+   group of 256 or 512, host work, in two subprocesses started after the
+   timed work) prints 62 OK lines and no FAIL.
 13. The train step across processes (``[parallel dp]``): one process a
    card (``torch.cuda.device_count()`` of them, spawned) in an NCCL group,
    on ``make_host_mesh()``: olmo-1b at full width through the sharded
@@ -124,10 +125,14 @@ Phases, in order; any failure exits non-zero:
    in its backward), 4 steps, each step's time by CUDA events, each
    rank's peak memory, K3 32 and K3-bwd 16 launches a step by the
    counters and the profiler, and the profiler's NCCL kernels and
-   device-to-device copies.  With one card, one sharded step from a state
-   must give the one-process step's bits from a clone of it, and each
-   step's own peak is printed beside the other's; that step runs the split
-   path of a model axis of 1 (heads, FFN columns, vocabulary and
+   device-to-device copies; then each rank counts the collectives of one
+   more step (calls and result bytes by kind, with the dry-run's
+   counter), which must equal the dry-run's plan of that rank on the same
+   mesh and global batch (computed on meta tensors in a fake group, in a
+   subprocess, before the group starts).  With one card, one sharded step
+   from a state must give the one-process step's bits from a clone of it,
+   and each step's own peak is printed beside the other's; that step runs
+   the split path of a model axis of 1 (heads, FFN columns, vocabulary and
    embedding rows in one block each, ``to_model``/``from_model`` and the
    vocabulary-parallel loss, counted on a ``[parallel tp] world 1`` line,
    with the per-layer gathers); with more, an f32 step at 2 layers must
@@ -3069,10 +3074,11 @@ def dryrun_expected_ok():
 def phase_parallel(card):
     """[parallel]: the mesh, the remat policies, the int8 all-reduce and
     the dry-run on the card.  The dry-run (``python -m
-    repro_torch.launch.dryrun --all --both-meshes --out ""``: host work on
-    meta tensors) starts in a subprocess after the last timed step, so its
-    load is in none of the phase's times, and runs beside the serve
-    example; no line may be FAIL.  Returns {path: {kernel: launches}}."""
+    repro_torch.launch.dryrun --all --out ""``, and again with
+    ``--multi-pod``: host work on meta tensors) starts in two
+    subprocesses, one a mesh, after the last timed step, so its load is
+    in none of the phase's times, and runs beside the serve example; no
+    line may be FAIL.  Returns {path: {kernel: launches}}."""
     from repro_torch.launch.mesh import make_host_mesh
     t = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -3085,10 +3091,11 @@ def phase_parallel(card):
     del leaf
     torch.cuda.empty_cache()
     t_dry = time.perf_counter()
-    dry = subprocess.Popen(
+    # one process a mesh: each cell's meta run is host work of its own
+    dry = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--both-meshes", "--out", ""], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+         *mesh, "--out", ""], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for mesh in ([], ["--multi-pod"])]
     try:
         res = subprocess.run(
             [sys.executable, "examples/torch_serve_paged.py"], cwd=ROOT,
@@ -3099,21 +3106,24 @@ def phase_parallel(card):
         if res.returncode or line != EXPECT_SERVE_EXAMPLE:
             fail(f"examples/torch_serve_paged.py: rc {res.returncode}, "
                  f"{line!r}: {res.stderr[-2000:]}")
-        out, err = dry.communicate(timeout=600)
+        outs = [p.communicate(timeout=600) for p in dry]
     finally:
-        if dry.poll() is None:
-            dry.kill()
-            dry.wait()
-    print(f"[parallel] dry-run wall {time.perf_counter() - t_dry:.3f} s",
-          flush=True)
-    lines = out.strip().splitlines()
+        for p in dry:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"[parallel] dry-run wall {time.perf_counter() - t_dry:.3f} s "
+          "(one process a mesh)", flush=True)
+    lines = [x for out, _ in outs for x in out.strip().splitlines()]
     for line in lines:
         print(f"[parallel dryrun] {line}", flush=True)
     ok = [x for x in lines if x.startswith("OK ")]
-    if dry.returncode or any(x.startswith("FAIL") for x in lines) \
+    if any(p.returncode for p in dry) \
+            or any(x.startswith("FAIL") for x in lines) \
             or len(ok) != dryrun_expected_ok():
-        fail(f"dry-run: rc {dry.returncode}, {len(ok)} OK lines for "
-             f"{dryrun_expected_ok()}: {err[-3000:]}")
+        fail(f"dry-run: rc {[p.returncode for p in dry]}, {len(ok)} OK "
+             f"lines for {dryrun_expected_ok()}: "
+             + " ".join(err[-1500:] for _, err in outs))
     print(f"[parallel] phase wall {time.perf_counter() - t:.3f} s",
           flush=True)
     return {f"parallel olmo-1b train, remat=dots_with_no_batch_dims, "
@@ -3825,15 +3835,16 @@ def tp_decode(mesh, tag):
     dist.barrier()
 
 
-def dp_olmo(mesh, tag):
+def dp_olmo(mesh, tag, plan):
     """olmo-1b at full width through the sharded train step, global batch
     2 a data coordinate, seq 4096, remat "full": at world 1 the bits check
     (``dp_bits_check``), with more processes ``dp_f32_check``; then
     TRAIN_STEPS steps timed by CUDA events with their launches on every
-    rank (K3 32 and K3-bwd 16 a step), each rank's peak memory and a
+    rank (K3 32 and K3-bwd 16 a step), each rank's peak memory, a
     profiled step (K3 and K3-bwd kernels, NCCL kernels by collective,
-    device-to-device copies).  Returns (the timed steps' launches, the
-    first step's loss)."""
+    device-to-device copies) and a step whose collectives each rank
+    counts, held to the dry-run's ``plan`` (``dp_collectives``).  Returns
+    (the timed steps' launches, the first step's loss)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import flash_attention as fa
@@ -3929,9 +3940,72 @@ def dp_olmo(mesh, tag):
     if set(counted) != {want} or not verdict(world == 1 or nccl):
         fail(f"{tag}: the profiler found {counted} K3 and K3-bwd and "
              f"NCCL {nccl} in a step, for {want} and NCCL kernels")
+    dp_collectives(step, (params, opt, batches[0]), plan, tag, nccl)
     del params, opt
     torch.cuda.empty_cache()
     return totals, first
+
+
+def dp_collectives(step, args, plan, tag, nccl):
+    """One more step under the dry-run's counter (``launch.dryrun
+    ._MetaCounter``): each rank's collectives by kind, calls and result
+    bytes, printed beside the dry-run's plan of that rank on the same mesh
+    and global batch (``plan``: ``dryrun_plan``) and the NCCL kernels of
+    the profiled step; the two counts must be equal."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    counter = dryrun._MetaCounter()
+    with counter:
+        step(*args)
+    torch.cuda.synchronize()
+    mine = {k: c for k, c in sorted(counter.collectives.items())}
+    each = [None] * dist.get_world_size()
+    dist.all_gather_object(each, mine)
+    if dist.get_rank():
+        return
+
+    def show(colls):
+        return ", ".join(f"{k} {c['calls']} calls {c['bytes']} B"
+                         for k, c in colls.items()) or "none"
+    for r, got in enumerate(each):
+        print(f"{tag} collectives of one step, rank {r}: counted "
+              f"{show(got)}; the dry-run's plan {show(plan[str(r)])}; "
+              f"equal: {got == plan[str(r)]}", flush=True)
+    print(f"{tag} NCCL kernels of the profiled step: " + (", ".join(
+        f"{part} {ms:.3f} ms in {k}" for part, (ms, k) in sorted(
+            nccl.items())) or "none (one rank: NCCL copies)"), flush=True)
+    if any(got != plan[str(r)] for r, got in enumerate(each)):
+        fail(f"{tag}: the collectives counted in a step differ from the "
+             "dry-run's plan")
+
+
+def dryrun_plan(cfg, kind, b, seq, world, model=1, pod=1):
+    """{rank: {kind: {"calls", "bytes"}}}: the dry-run's plan
+    (``launch.dryrun.plan``) of every rank of a mesh of ``world`` for the
+    step of ``kind`` of ``cfg`` (an arch's config with overrides), on meta
+    tensors in a fake group, in a subprocess: the plan starts a process
+    group of its own, which a process in a live one cannot."""
+    over = {k: getattr(cfg, k) for k in ("attn_impl", "remat", "n_layers")}
+    code = (
+        "import dataclasses, json, sys\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.launch import dryrun\n"
+        "arch, over, kind, b, seq, world, model, pod = "
+        "json.loads(sys.argv[1])\n"
+        "cfg = dataclasses.replace(get_config(arch), **over)\n"
+        "print(json.dumps({r: dryrun.plan(cfg, kind, b, seq, model=model, "
+        "pod=pod, world=world, rank=r).counter.collectives "
+        "for r in range(world)}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-c", code, json.dumps(
+            [cfg.name, over, kind, b, seq, world, model, pod])],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    if res.returncode:
+        fail(f"the dry-run's plan: rc {res.returncode}: "
+             f"{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
 
 
 def dp_olmo_cfg():
@@ -4108,7 +4182,7 @@ DP_RUNS = ("olmo", "mamba", "decode", "prefill", "granite", "pod", "phi3",
            "driver")
 
 
-def dp_worker(rank, world, store_path, model=1, runs=DP_RUNS):
+def dp_worker(rank, world, store_path, model=1, runs=DP_RUNS, plan=None):
     """One process of the [parallel dp] group, on card ``rank``, on a
     (world / model, model) mesh (rank 0 prints): of ``runs``, olmo-1b's
     sharded train steps (``dp_olmo``), with a model axis of 1 its step on
@@ -4136,7 +4210,7 @@ def dp_worker(rank, world, store_path, model=1, runs=DP_RUNS):
             f"mesh {mesh.shape}", flush=True)
         totals, loss0 = {}, None
         if "olmo" in runs:
-            totals["olmo"], loss0 = dp_olmo(mesh, tag)
+            totals["olmo"], loss0 = dp_olmo(mesh, tag, plan)
         if "pod" in runs and model == 1:
             if loss0 is None:
                 say(f"{tag} pod: needs the olmo run's first loss (--runs "
@@ -4226,10 +4300,17 @@ def phase_parallel_dp(card, model=1, runs=DP_RUNS):
               f"machine with more; {card}", flush=True)
     ctx = multiprocessing.get_context("spawn")
     b = 2 * world // model
+    plan = None
+    if "olmo" in runs:
+        t_plan = time.perf_counter()
+        plan = dryrun_plan(dp_olmo_cfg(), "train", b, DP_SEQ, world, model)
+        print(f"{tag} the dry-run's plan of the olmo-1b step on every rank "
+              f"(meta tensors, a fake group of {world}): "
+              f"{time.perf_counter() - t_plan:.3f} s", flush=True)
     with tempfile.TemporaryDirectory(prefix="dp_") as tmp:
         procs = [ctx.Process(target=dp_worker,
                              args=(r, world, os.path.join(tmp, "store"),
-                                   model, runs))
+                                   model, runs, plan))
                  for r in range(world)]
         for p in procs:
             p.start()

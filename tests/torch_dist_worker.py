@@ -4,8 +4,10 @@ across processes (``tests/test_torch_dist*.py``).
   python tests/torch_dist_worker.py RANK WORLD STORE JOB.json
 
 ``run_ranks`` starts WORLD of them and reads what they wrote.  Each joins
-a gloo group of WORLD processes through a ``FileStore`` at STORE,
-runs the job the JSON file describes and writes ``<out>/rank<RANK>.npz``.
+a gloo group of WORLD processes through a ``FileStore`` at STORE (its
+collectives time out after the job's ``timeout`` seconds, 90 where it
+names none), runs the job the JSON file describes and writes
+``<out>/rank<RANK>.npz``.
 Imports torch, numpy and ``repro_torch`` only.  Jobs:
 
 * ``train``: the port's ``build_train_step`` on ``make_host_mesh`` for
@@ -37,6 +39,12 @@ Imports torch, numpy and ``repro_torch`` only.  Jobs:
   one decode token from the seeded init, each with ``runtime.gathered``
   zeroed before it: writes the gathers' count, bytes, the most bytes
   alive at once and the bytes still alive after it.
+* ``collectives``: each of ``steps`` ("train", "prefill", "decode") of
+  ``arch`` once from the seeded init (the train and prefill steps on
+  step 0's synthetic batch of ``batch`` × ``seq``, decode one token from
+  a zero cache of ``decode_batch`` × ``max_seq`` blocks), each under the
+  dry-run's counter (``launch.dryrun._MetaCounter``): writes the calls
+  and bytes of each kind of collective the step issued.
 * ``ckpt_save``: one step from the seeded init, then ``save_sharded`` at
   step 1; writes the whole state gathered.
 * ``ckpt_restore``: ``restore_sharded`` into zero blocks; writes the whole
@@ -68,6 +76,7 @@ from repro_torch.checkpoint import (CheckpointConfig, CheckpointStore,
                                     named_leaves, restore_sharded,
                                     save_sharded)
 from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import get_model, modules
 from repro_torch.parallel import runtime
@@ -356,6 +365,36 @@ def gathers(job, mesh, out):
         out[f"{kind}/live"] = runtime.gathered["live"]
 
 
+def collectives(job, mesh, out):
+    cfg = config(job)
+    b, s = job["batch"], job["seq"]
+    db, max_seq = job["decode_batch"], job["max_seq"]
+    tc = TrainConfig()
+    batch = synthetic_batch(cfg, 0, b, s)
+    (p_spec, _, _), _ = step_specs(cfg, "train", mesh, b, s, tc)
+    full = get_model(cfg).init(cfg, torch.Generator().manual_seed(0), "cpu")
+    for kind in job["steps"]:
+        params = runtime.shard_tree(full, p_spec, mesh)
+        if kind == "train":
+            step, _ = build_train_step(cfg, b, s, tc, "cpu", mesh=mesh)
+            args = (params, init_state(params, tc.adamw), batch)
+        elif kind == "prefill":
+            step, _ = build_prefill_step(cfg, b, s, "cpu", mesh=mesh)
+            args = (params, {k: v for k, v in batch.items()
+                             if k != "targets"})
+        else:
+            step, _ = build_decode_step(cfg, db, max_seq, "cpu", mesh=mesh)
+            args = (params, init_cache_blocks(cfg, db, max_seq, mesh,
+                                              device="cpu"),
+                    np.full(db, 3, np.int32), batch["tokens"][:db, :1])
+        counter = dryrun._MetaCounter()
+        with counter:
+            step(*args)
+        for name, c in counter.collectives.items():
+            for k in ("calls", "bytes"):
+                out[f"{kind}/{name}/{k}"] = c[k]
+
+
 def ckpt(job, mesh, out, save):
     cfg = config(job)
     tc = TrainConfig(adamw=AdamWConfig(lr=1e-3))
@@ -382,7 +421,7 @@ def ckpt(job, mesh, out, save):
 
 JOBS = {"train": train, "prefill": prefill, "norm": norm, "norm2d": norm2d,
         "model_axis": model_axis, "grads": grads, "decode": decode,
-        "gathers": gathers,
+        "gathers": gathers, "collectives": collectives,
         "ckpt_save": lambda job, mesh, out: ckpt(job, mesh, out, True),
         "ckpt_restore": lambda job, mesh, out: ckpt(job, mesh, out, False)}
 
@@ -407,7 +446,7 @@ def main():
     job = json.loads(open(job_path).read())
     torch.set_num_threads(1)
     runtime.init_group("cpu", dist.FileStore(store_path, world), rank, world,
-                       timeout=timedelta(seconds=90))
+                       timeout=timedelta(seconds=job.get("timeout", 90)))
     try:
         out = {}
         run_job(job, out, {})

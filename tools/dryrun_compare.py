@@ -11,11 +11,16 @@ The JAX dry-run runs in a subprocess with 512 host devices.
 ``make_production_mesh`` builds Explicit axes, which
 ``with_sharding_constraint`` refuses), so for those the subprocess builds
 the same mesh with Auto axes in its place; nothing in ``src/repro``
-changes.  Prints, per cell, each side's flops, HBM bytes and collective
-bytes per device and argument bytes, and the port's over the JAX
-package's.  The JAX numbers are XLA's cost analysis for the TPU v5e
-target's compile on host devices, not a measurement; the port's are
-counts on meta tensors.
+changes.  Prints, per cell, each side's flops, transcendentals, HBM
+bytes and collective bytes per device and argument bytes, and the port's
+over the JAX package's; then each side's collectives by kind, calls and
+bytes.  The JAX side's transcendentals and collective calls are read
+from the same compiles its dry-run makes (its cost analysis, and its
+HLO's collective ops counted as its ``collective_bytes`` sums them) and
+corrected for the layer loop as it corrects flops (``corrected_costs``).
+The JAX numbers are XLA's cost analysis for the TPU v5e target's compile
+on host devices, not a measurement; the port's are counts of one
+device's step on meta tensors (``repro_torch.launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -31,14 +36,47 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 CELLS = [("olmo-1b", "decode_32k", False), ("mamba2-370m", "long_500k", False),
          ("olmo-1b", "train_4k", True), ("olmo-1b", "prefill_32k", True)]
 
-_REFERENCE = """
-import json, sys
+_REFERENCE = r"""
+import json, re, sys
 import jax
 from jax.sharding import AxisType
 import repro.launch.mesh as mesh_mod
+from repro.configs import get_config
 from repro.launch import dryrun
 
 shipped = mesh_mod.make_production_mesh
+compile_cell = dryrun._compile_cell
+compiles = []
+
+
+def counting_compile(cfg, *args, **kwargs):
+    # each compile's transcendentals and collective calls by kind, beside
+    # what the dry-run reads from it
+    compiled, cost, coll = compile_cell(cfg, *args, **kwargs)
+    calls = {}
+    for line in compiled.as_text().splitlines():
+        m = re.match(r"^(?:ROOT\s+)?%?[\w.-]+\s*=\s*(.*)$", line.strip())
+        cm = dryrun._COLL_RE.search(m.group(1)) if m else None
+        if cm:
+            kind = cm.group(1).lower()
+            calls[kind] = calls.get(kind, 0) + 1
+    compiles.append((float(cost.get("transcendentals", 0.0)), calls))
+    return compiled, cost, coll
+
+
+def corrected(cfg, key):
+    # the two-point loop correction of corrected_costs, applied to the last
+    # two compiles (one unit of layers, then two)
+    steps = cfg.n_layers // dryrun._scan_unit(cfg)
+    (t1, c1), (t2, c2) = compiles[-2:]
+    if key == "transcendentals":
+        return t1 + (steps - 1) * max(0.0, t2 - t1)
+    return {k: int(c1.get(k, 0) + (steps - 1)
+                   * max(0, c2.get(k, 0) - c1.get(k, 0)))
+            for k in sorted(set(c1) | set(c2))}
+
+
+dryrun._compile_cell = counting_compile
 
 
 def auto_axes(*, multi_pod=False):
@@ -50,7 +88,11 @@ def auto_axes(*, multi_pod=False):
 out = {}
 for arch, shape, patch in json.loads(sys.argv[1]):
     mesh_mod.make_production_mesh = auto_axes if patch else shipped
-    out[f"{arch} {shape}"] = dryrun.run_cell(arch, shape, False, "")
+    r = dryrun.run_cell(arch, shape, False, "")
+    cfg = get_config(arch)
+    r["cost"]["transcendentals_per_dev"] = corrected(cfg, "transcendentals")
+    r["collective_calls"] = corrected(cfg, "calls")
+    out[f"{arch} {shape}"] = r
 print(json.dumps(out))
 """
 
@@ -81,6 +123,8 @@ def main() -> int:
         p, r = port[key], ref[key]
         rows = [("flops/dev", p["cost"]["flops_per_dev"],
                  r["cost"]["flops_per_dev"]),
+                ("transcendentals/dev", p["cost"]["transcendentals_per_dev"],
+                 r["cost"]["transcendentals_per_dev"]),
                 ("HBM bytes/dev", p["cost"]["hbm_bytes_per_dev"],
                  r["cost"]["hbm_bytes_per_dev"]),
                 ("collective bytes/dev", p["collective_bytes_per_dev"],
@@ -95,8 +139,14 @@ def main() -> int:
             print(f"| {key} | {name} | {a:.6g} | {b:.6g} | {ratio} |")
         print(f"| {key} | dominant term | {p['roofline']['dominant']} | "
               f"{r['roofline']['dominant']} | |")
-        print(f"| {key} | collectives | {json.dumps(p['collectives'])} | "
-              f"{json.dumps(r['collectives'])} | |")
+        for kind in sorted(set(p["collectives"]) | set(r["collectives"])):
+            a = (p["collective_calls"].get(kind, 0),
+                 p["collectives"].get(kind, 0))
+            b = (r["collective_calls"].get(kind, 0),
+                 r["collectives"].get(kind, 0))
+            ratio = f"{a[1] / b[1]:.6g}" if b[1] else "—"
+            print(f"| {key} | {kind}: calls, bytes | {a[0]}, {a[1]} | "
+                  f"{b[0]}, {b[1]} | {ratio} |")
     return 0
 
 

@@ -23,7 +23,13 @@ driver, which runs the data axis only, is left out.  On 2 cards or more
 (2, cards / 2, 1) is held to the data mesh's first loss on the same
 batch; on 4 or more (``phi3``) phi3-medium-14b trains 3 steps at full
 width on the mesh (global batch 4 × 4096): each rank's peak, each step's
-time, K3 80 and K3-bwd 40 launches a step on every rank.  ``--runs``
+time, K3 80 and K3-bwd 40 launches a step on every rank.  After olmo-1b's
+timed and profiled steps, each rank counts the collectives of one more
+step (calls and result bytes by kind, with the dry-run's counter), and
+rank 0 prints them beside the dry-run's plan of the same rank, mesh and
+global batch (``launch.dryrun.plan`` on meta tensors in a fake group,
+computed in a subprocess before the group starts) and beside the NCCL
+kernels of the profiled step; the two counts must be equal.  ``--runs``
 takes a comma-separated subset of olmo, mamba, decode, prefill, granite,
 pod, phi3 and driver (all by default; pod needs olmo).  Exits non-zero
 where the phase fails.  On a host with four cards:
