@@ -37,6 +37,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import repro_torch.bench, repro_torch.obs.runtime\n"
+        "import repro_torch.obs.report, repro_torch.obs.lint\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith"
         "(('jax.', 'jaxlib')) or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
