@@ -1364,54 +1364,72 @@ TRAIN_PARTS_SSM = ((("ssd_bwd",), "K4-bwd (ssd_scan_bwd)"),
                    PRODUCT_PART)
 
 
-# Profiler ranges (record_function) of the port's model and train step.
-RANGES = ("attention", "mamba", "ffn", "moe.route", "moe.dispatch",
-          "moe.experts", "moe.combine", "adamw")
 REST = "elementwise, casts, reductions, optimizer"
+# the training phases' labels of the program's parts (repro_torch.ranges)
+TRAIN_LABELS = {"embed": "embedding", "layer": "layer: residual adds",
+                "attention": "attention (norm, projections, RoPE)",
+                "mamba": "Mamba-2 (norm, projections, conv, gate, casts)",
+                "ffn": "FFN: norm, weight casts, activation",
+                "unembed": "unembedding: final norm, casts",
+                "loss": "cross-entropy", "grad_norm": "gradient norm",
+                "adamw": "AdamW"}
+
+
+def program_range(e):
+    """The innermost of the program's profiler ranges
+    (``repro_torch.ranges``) around a profiled op, or None: a gradient op
+    lies in its part's ``.bwd`` range, a remat recompute in ``.remat``."""
+    from repro_torch import ranges
+    while e is not None and e.name not in ranges.NAMES:
+        e = e.cpu_parent
+    return None if e is None else e.name
 
 
 def device_parts(prof, parts, labels, fallback=(PRODUCT_PART,)):
     """{part: device ms} of one profiled run.  A kernel goes to the first
     of ``parts`` [((name substrings), part)] that its name matches; else,
-    where ``labels`` {range: part} names one, to the innermost profiler
-    range around the op that launched it, or, in the backward pass, around
-    the forward op whose autograd node launched it (matched by sequence
-    number and thread, as the profiler matches backward stack traces; a
-    remat recompute runs under the ranges again); else to the first of
-    ``fallback`` that its name matches, else to REST."""
+    where ``labels`` {range's part: part} names one, to the part of the
+    program range that launched it (``program_range``), in any pass; else
+    to the first of ``fallback`` that its name matches, else to REST."""
     from torch.autograd import DeviceType
-    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
 
-    def nearest(e):
-        while e is not None and not (e.name in labels or e.scope == 1):
-            e = e.cpu_parent
-        return e
-
-    forward = {}
-    for e in cpu:
-        if e.sequence_nr >= 0 and e.scope != 1:
-            up = nearest(e)
-            if up is not None and up.scope != 1:
-                forward.setdefault((e.sequence_nr, e.thread), up.name)
+    from repro_torch import ranges
     totals = {}
-    for e in cpu:
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
         for kernel in e.kernels:
-            if kernel.name in RANGES:
+            if kernel.name in ranges.NAMES:
                 continue
             part = next((p for keys, p in parts
                          if any(key in kernel.name for key in keys)), None)
             if part is None and labels:
-                up = nearest(e)
-                if up is not None and up.scope == 1:
-                    up = forward.get((up.sequence_nr, up.fwd_thread))
-                elif up is not None:
-                    up = up.name
-                part = labels.get(up)
+                up = program_range(e)
+                part = labels.get(up and ranges.split(up)[0])
             if part is None:
                 part = next((p for keys, p in fallback
                              if any(key in kernel.name for key in keys)),
                             REST)
             totals[part] = totals.get(part, 0.0) + kernel.duration / 1e3
+    return totals
+
+
+def device_passes(prof):
+    """{pass: device ms} of one profiled run: each kernel by the pass of
+    the program range that launched it (forward, remat, bwd), or "no
+    range"."""
+    from torch.autograd import DeviceType
+
+    from repro_torch import ranges
+    totals = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        up = program_range(e)
+        kind = ranges.split(up)[1] if up else "no range"
+        for kernel in e.kernels:
+            if kernel.name not in ranges.NAMES:
+                totals[kind] = totals.get(kind, 0.0) + kernel.duration / 1e3
     return totals
 
 
@@ -1446,6 +1464,10 @@ def profile_train_step(step, params, opt, batch, label, parts, keep,
           "activities", flush=True)
     for part, ms in sorted(totals.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  {part}")
+    print("[profile]   by pass (the program's ranges): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in sorted(device_passes(prof).items(),
+                                             key=lambda kv: -kv[1])),
+          flush=True)
     print_ranked(by_name, keep)
     grads = tree_unflatten(params, [torch.zeros_like(p)
                                     for p in tree_leaves(params)])
@@ -1817,9 +1839,11 @@ def device_time_by_name(prof):
     """{kernel name: (device us, count)}; a profiler range's own span on the
     device timeline (a user annotation) is not a kernel."""
     from torch.autograd import DeviceType
+
+    from repro_torch import ranges
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.name not in RANGES \
+        if e.device_type == DeviceType.CUDA and e.name not in ranges.NAMES \
                 and not getattr(e, "is_user_annotation", False):
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.device_time, n + 1)
@@ -4442,7 +4466,7 @@ def main() -> int:
         cfg, [("flash_attention", lambda: fa.launches, 2 * cfg.n_layers),
               ("flash_attention_bwd", lambda: fa.bwd_launches,
                cfg.n_layers)],
-        TRAIN_PARTS, ["flash_attention"])
+        TRAIN_PARTS, ["flash_attention"], TRAIN_LABELS)
     torch.cuda.empty_cache()
     phase_train_f32_check()
     run_train_driver(["--smoke", "--steps", "4", "--batch", "2",
@@ -4468,7 +4492,7 @@ def main() -> int:
     _, records[5]["launches"] = phase_train(
         cfg, [("ssd_scan", lambda: ss.launches, 2 * cfg.n_layers),
               ("ssd_scan_bwd", lambda: ss.bwd_launches, cfg.n_layers)],
-        TRAIN_PARTS_SSM, ["ssd_"])
+        TRAIN_PARTS_SSM, ["ssd_"], TRAIN_LABELS)
     torch.cuda.empty_cache()
     phase_train_mamba_f32_check()
     run_train_driver(["--arch", "mamba2-370m", "--smoke", "--steps", "4",

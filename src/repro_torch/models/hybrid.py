@@ -16,8 +16,8 @@ wraps the block in ``jax.checkpoint``; every other policy runs plain, as
 the reference does.  The attention position reaches the flash kernel (K3)
 through ``gqa_attention`` where ``attn_impl == "chunked"``; each Mamba
 position reaches the SSD-scan kernel (K4) through ``ssm.ssd_layer``.  The
-profiler sees the parts as ``attention``, ``mamba`` and ``ffn`` (with the
-MoE's own ``moe.*`` inside).
+profiler sees each position as ``layer``, with ``attention`` or ``mamba``
+and ``ffn`` (the MoE's own ``moe.*`` inside) in it (``ranges.part``).
 
 Decode keeps a KV cache for the attention position of every block and
 O(1) conv and SSM state for each Mamba position, in plain PyTorch.
@@ -39,11 +39,11 @@ import dataclasses
 from typing import Any, Dict
 
 import torch
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..parallel.ctx import constrain, gather_layer, gathers_params
+from ..ranges import part
 from .config import ModelConfig
 from .modules import (ParamSpec, apply_rope, attention_specs, axes_tree,
                       cross_entropy, decode_attention, decode_kv, dense_ffn,
@@ -111,20 +111,25 @@ def _ffn(cfg: ModelConfig, ffn_kind: str, lp: Params, x):
 def _apply_position(cfg: ModelConfig, i: int, lp: Params, x, positions):
     """Position ``i`` of a block on its weights ``lp`` (gathered over
     ``data`` here where the step splits them)."""
-    lp = gather_layer(lp, "blocks", f"pos{i}")
-    x = constrain(x, ("act_batch", None, None))
-    mixer, ffn_kind = _position_roles(cfg)[i]
-    if mixer == "attn":
-        with record_function("attention"):
-            h, _ = gqa_attention(lp["attn"], norm(x, lp["attn_norm"], cfg),
-                                 positions, cfg, causal=True)
-        x = x + h
-    else:
-        with record_function("mamba"):
-            x = ssd_layer(lp["mamba"], x, cfg)     # its own norm, residual
-    with record_function("ffn"):
-        h = _ffn(cfg, ffn_kind, lp, x)
-    return x + h
+    with part("layer") as layer:
+        x = layer.input(x)
+        lp = gather_layer(lp, "blocks", f"pos{i}")
+        x = constrain(x, ("act_batch", None, None))
+        mixer, ffn_kind = _position_roles(cfg)[i]
+        if mixer == "attn":
+            with part("attention") as p:
+                h, _ = gqa_attention(lp["attn"],
+                                     norm(p.input(x), lp["attn_norm"], cfg),
+                                     positions, cfg, causal=True)
+                h = p.output(h)
+            x = x + h
+        else:
+            with part("mamba") as p:
+                # its own norm, residual
+                x = p.output(ssd_layer(lp["mamba"], p.input(x), cfg))
+        with part("ffn") as p:
+            h = p.output(_ffn(cfg, ffn_kind, lp, p.input(x)))
+        return layer.output(x + h)
 
 
 def _block(cfg: ModelConfig, x, bp: Params, positions,

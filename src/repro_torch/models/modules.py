@@ -29,13 +29,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..kernels import ops
 from ..parallel import runtime
 from ..parallel.ctx import (SeqSplit, Split, batch_group, constrain,
                             gather_params, model_split, seq_split)
+from ..ranges import part
 
 Params = Dict[str, Any]
 
@@ -116,8 +116,14 @@ def embed_tokens(table, tokens, cfg):
     ``from_model`` adds: one term of each sum is not zero, so the sum is
     exact.  A negative token counts from the end, as indexing counts it.
     Where the step splits the table's columns over ``data`` (FSDP), they
-    are gathered for this use (``gather_params``)."""
-    table = gather_params(table, "embed")
+    are gathered for this use (``gather_params``).  The profiler sees it
+    as ``embed``."""
+    with part("embed") as p:
+        return p.output(_embed_rows(gather_params(p.input(table), "embed"),
+                                    tokens, cfg))
+
+
+def _embed_rows(table, tokens, cfg):
     sp = model_split((cfg.vocab, cfg.d_model), ("vocab_in", "embed_in"))
     if sp is None:
         # rows first, then the cast: the same values as casting the table
@@ -134,13 +140,17 @@ def unembed(params: Params, x, cfg):
     """Final norm, then the (d_model, vocab) product: logits (B, S, V), or
     this process's vocabulary columns of them (``vocab_split``).  The
     norm's gain and the table are gathered over ``data`` for this use
-    where the step splits them (``gather_params``)."""
-    x = norm(x, gather_params(params["final_norm"], "final_norm"), cfg)
-    sp = vocab_split(cfg)
-    if sp is not None:
-        x = runtime.to_model(x, sp.group)
-    table = gather_params(params["unembed"], "unembed")
-    return torch.einsum("bsd,dv->bsv", x, table.to(cfg.compute_dtype))
+    where the step splits them (``gather_params``).  The profiler sees it
+    as ``unembed``."""
+    with part("unembed") as p:
+        x = norm(p.input(x), gather_params(params["final_norm"],
+                                           "final_norm"), cfg)
+        sp = vocab_split(cfg)
+        if sp is not None:
+            x = runtime.to_model(x, sp.group)
+        table = gather_params(params["unembed"], "unembed")
+        return p.output(torch.einsum("bsd,dv->bsv", x,
+                                     table.to(cfg.compute_dtype)))
 
 
 def _all_reduce(x, op, group):
@@ -201,9 +211,11 @@ def cross_entropy_terms(logits, targets, split: Optional[Split] = None):
 
 
 def cross_entropy(logits, targets):
-    """Mean next-token loss in f32 over targets >= 0."""
-    total, count = cross_entropy_terms(logits, targets)
-    return total / count.clamp(min=1.0)
+    """Mean next-token loss in f32 over targets >= 0; the profiler sees it
+    as ``loss``."""
+    with part("loss") as p:
+        total, count = cross_entropy_terms(p.input(logits), targets)
+        return p.output(total / count.clamp(min=1.0))
 
 
 # --------------------------------------------------------------------------
@@ -735,18 +747,20 @@ def moe_experts(p: Params, xt, plan, cfg, split: Optional[Split] = None):
             e0, e1 = split.block(e)
             maps = _local_maps(maps, e0 * cap, e1 * cap)
             e = e1 - e0
-    with record_function("moe.dispatch"):
+    with part("moe.dispatch") as r:
         # expert-sharded buffer: under expert parallelism the dispatch is
         # the token all-to-all
-        buf = constrain(_Dispatch.apply(xt, maps).view(e, cap, d),
-                        ("expert", None, None))
-    with record_function("moe.experts"):
-        h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["wg"])) * \
-            torch.einsum("ecd,edf->ecf", buf, p["wi"])
-        out = torch.einsum("ecf,efd->ecd", h, p["wo"])
-    with record_function("moe.combine"):
-        y = _Combine.apply(out.reshape(e * cap, d), gates, plan["order"],
-                           maps)
+        buf = r.output(constrain(
+            _Dispatch.apply(r.input(xt), maps).view(e, cap, d),
+            ("expert", None, None)))
+    with part("moe.experts") as r:
+        x = r.input(buf)
+        h = F.silu(torch.einsum("ecd,edf->ecf", x, p["wg"])) * \
+            torch.einsum("ecd,edf->ecf", x, p["wi"])
+        out = r.output(torch.einsum("ecf,efd->ecd", h, p["wo"]))
+    with part("moe.combine") as r:
+        y = r.output(_Combine.apply(r.input(out).reshape(e * cap, d), gates,
+                                    plan["order"], maps))
     return y if split is None else runtime.from_model(y, split.group)
 
 
@@ -783,8 +797,9 @@ def moe_ffn(p: Params, x, cfg):
     rs = _split(specs["router"])
     if rs is not None:
         router = runtime.gather_model(router, rs.dim, rs.group)
-    with record_function("moe.route"):
-        plan = moe_route((xt @ router).float(), cfg)
+    with part("moe.route") as r:
+        plan = moe_route((r.input(xt) @ router).float(), cfg)
+        plan["gates"] = r.output(plan["gates"])
     y = moe_experts(p, xt, plan, cfg, _split(specs["wi"]))
     if group is not None:
         y = y[dist.get_rank(group) * b * s:][:b * s]

@@ -42,6 +42,7 @@ from ..kernels import ops
 from ..kernels.ref import ssd_chunked_ref
 from ..parallel import runtime
 from ..parallel.ctx import Split, constrain, gather_layer
+from ..ranges import part
 from .config import ModelConfig
 from .modules import (ParamSpec, _split, axes_tree, cross_entropy,
                       embed_tokens, materialize, norm, rmsnorm, stack_specs,
@@ -284,8 +285,14 @@ def forward(params: Params, batch: Dict, cfg: ModelConfig):
 
 def _layer(lp: Params, x, cfg: ModelConfig):
     """One layer of the stack: its weights gathered over ``data`` where the
-    step splits them (``gather_layer``), then ``ssd_layer``."""
-    return ssd_layer(gather_layer(lp, "layers"), x, cfg)
+    step splits them (``gather_layer``), then ``ssd_layer``; the profiler
+    sees them as ``layer`` and ``mamba`` (``ranges.part``)."""
+    with part("layer") as layer:
+        x = layer.input(x)
+        lp = gather_layer(lp, "layers")
+        with part("mamba") as p:
+            x = p.output(ssd_layer(lp, p.input(x), cfg))
+        return layer.output(x)
 
 
 def loss_fn(params: Params, batch: Dict, cfg: ModelConfig):

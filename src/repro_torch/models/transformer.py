@@ -33,12 +33,12 @@ from functools import partial
 from typing import Any, Dict, Tuple
 
 import torch
-from torch.profiler import record_function
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from ..parallel.ctx import constrain, gather_layer, gather_params
+from ..ranges import part
 from .config import ModelConfig
 from .modules import (ParamSpec, apply_mrope, apply_rope, attention_specs,
                       axes_tree, cross_entropy, decode_attention, decode_kv,
@@ -81,17 +81,21 @@ def logical_axes(cfg: ModelConfig) -> Params:
 
 
 def _layer(cfg: ModelConfig, x, lp: Params, positions, causal: bool):
-    # Profiler ranges: a step's time by part, the remat recompute included
-    # (it runs inside the backward pass, under these ranges again).
-    lp = gather_layer(lp, "layers")
-    x = constrain(x, ("act_batch", None, None))
-    with record_function("attention"):
-        h, _ = gqa_attention(lp["attn"], norm(x, lp["attn_norm"], cfg),
-                             positions, cfg, causal=causal)
-    x = constrain(x + h, ("act_batch", None, None))
-    with record_function("ffn"):
-        h = ffn(lp["ffn"], norm(x, lp["ffn_norm"], cfg), cfg)
-    return constrain(x + h, ("act_batch", None, None))
+    # Profiler ranges (``ranges.part``): a step's time by part and pass.
+    with part("layer") as layer:
+        x = layer.input(x)
+        lp = gather_layer(lp, "layers")
+        x = constrain(x, ("act_batch", None, None))
+        with part("attention") as p:
+            h, _ = gqa_attention(lp["attn"],
+                                 norm(p.input(x), lp["attn_norm"], cfg),
+                                 positions, cfg, causal=causal)
+            h = p.output(h)
+        x = constrain(x + h, ("act_batch", None, None))
+        with part("ffn") as p:
+            h = p.output(ffn(lp["ffn"], norm(p.input(x), lp["ffn_norm"], cfg),
+                             cfg))
+        return layer.output(constrain(x + h, ("act_batch", None, None)))
 
 
 _MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -122,8 +126,9 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict):
     if cfg.frontend != "none":
         # the tower is a stub in both packages: frames (B, S, D) arrive
         # precomputed and a linear adapter stands in for it
-        adapter = gather_params(params["adapter"], "adapter")
-        return batch["frames"].to(cdt) @ adapter.to(cdt)
+        with part("embed") as p:
+            adapter = gather_params(p.input(params["adapter"]), "adapter")
+            return p.output(batch["frames"].to(cdt) @ adapter.to(cdt))
     return embed_tokens(params["embed"], batch["tokens"], cfg)
 
 

@@ -37,8 +37,8 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
-from torch.profiler import record_function
 
+from .. import ranges
 from ..device import resolve_device
 from ..models import get_model
 from ..models.config import ModelConfig
@@ -217,8 +217,9 @@ def _update(params, opt_state, loss, grads, m: int, norm, adamw):
     ``norm``, and AdamW on ``params`` in place."""
     if m > 1:
         grads = [a / m for a in grads]
-    grad_norm = norm(grads)
-    with record_function("adamw"):
+    with ranges.part("grad_norm"):
+        grad_norm = norm(grads)
+    with ranges.part("adamw"):
         params, opt_state = apply_updates(
             params, tree_unflatten(params, grads), opt_state, adamw)
     return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
@@ -321,15 +322,17 @@ def _sharded_grads(cfg: ModelConfig, global_batch: int, seq: int,
                               params=p_spec):
             logits = model.forward(tree_unflatten(params, leaves), batch,
                                    cfg)
-            total, count = cross_entropy_terms(logits, batch["targets"],
-                                               vocab_split(cfg))
-            if group is not None:
-                count = runtime.all_sum(count, group)
-            loss = total / count.clamp(min=1.0)
+            with ranges.part("loss") as p:
+                total, count = cross_entropy_terms(
+                    p.input(logits), batch["targets"], vocab_split(cfg))
+                if group is not None:
+                    count = runtime.all_sum(count, group)
+                loss = p.output(total / count.clamp(min=1.0))
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
         if group is not None:
-            loss = runtime.all_sum(loss, group)
+            with ranges.part("loss"):
+                loss = runtime.all_sum(loss, group)
         return loss.detach(), grads
 
     def grads(params, batch):
