@@ -23,7 +23,11 @@ Phases, in order; any failure exits non-zero:
    mma.sync).  The profiler checks that K1 and K2 are one kernel a call.
    K4 and K4-bwd are also held and timed at one card's heads of a model
    axis of 4: mamba2-370m's (2, 4096, 8 of 32 heads, P 64, N 128) and
-   jamba's (1, 4096, 32 of 128, P 64, N 16).
+   jamba's (1, 4096, 32 of 128, P 64, N 16).  The Mamba-2 layer's fused
+   kernels (``ssd_fused``: the conv and dt, the gated norm, forward and
+   backward) are held, with their plain versions, to an f64 evaluation
+   at mamba2-370m.train's shape (8 x 4096) and timed beside their byte
+   bound, and the whole stretch beside its plain composite.
 3. Run the serve driver at full olmo-1b width (16 layers, d_model 2048) and
    check its counts and that it went through K1 (once a decode step) and K2
    (once a compaction).
@@ -149,8 +153,9 @@ Phases, in order; any failure exits non-zero:
    step, global batch 2 a card × 4096, remat "full": at one card one step
    gives the one-process step's bits through the split path of a model
    axis of 1 (the Mamba-2 heads, ``w_in``'s blocks gathered by
-   ``gather_blocks``, the gated norm's ``psum``: counted on a
-   ``[parallel tp] world 1`` line); with more cards an f32 step at 2
+   ``gather_blocks``: counted on a ``[parallel tp] world 1`` line; the
+   gated norm's row is whole there, so it runs fused, with no ``psum``);
+   with more cards an f32 step at 2
    layers is held against the f64 one-process step (``dp_f32_check``);
    4 steps timed by CUDA events with K4 96 and K4-bwd 48 launches a step
    by the counters and the profiler, and each rank's peak.  Then the
@@ -947,7 +952,8 @@ def phase_ssd_scan():
 
 def ssd_launch_times(call, calls: int = 10, key="ssd_scan", tag="[K4]"):
     """Device time of each of K4's launches (chunk states, state passing,
-    chunk scan), or of K4-bwd's (key "ssd_bwd"), by kernel name from the
+    chunk scan), or of K4-bwd's (key "ssd_bwd"), or of the kernels whose
+    name holds any of ``key`` where it is a tuple, by kernel name from the
     profiler, over a few calls."""
     from torch.profiler import ProfilerActivity, profile
     call()
@@ -956,8 +962,9 @@ def ssd_launch_times(call, calls: int = 10, key="ssd_scan", tag="[K4]"):
         for _ in range(calls):
             call()
         torch.cuda.synchronize()
+    keys = (key,) if isinstance(key, str) else key
     by_name = {name: v for name, v in device_time_by_name(prof).items()
-               if key in name}
+               if any(k in name for k in keys)}
     total = sum(us for us, _ in by_name.values())
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
         print(f"{tag}   {us / n / 1e3:.4f} ms a launch ({100 * us / total:.1f}%)"
@@ -1133,15 +1140,276 @@ def phase_ssd_scan_bwd():
     return record
 
 
+SSD_FUSED_SHAPE = (8, 4096)     # mamba2-370m.train's rows a step
+SSD_FUSED_KERNELS = ("conv_silu", "dt_softplus", "gated_rmsnorm",
+                     "column_sum")
+# a value the kernel rounds once to bf16: half a bf16 ulp of itself, and
+# f32 sums' share of the output's largest magnitude
+BF16_HALF_ULP, F32_SLACK = 2.0 ** -8, 1e-5
+# a value the kernel keeps in f32: relative to the f64 value's norm
+F32_REL = 1e-4
+
+
+def _fused_err(got, exact, rounded):
+    """(worst distance, its limit, elements over the limit): elementwise
+    against half a bf16 ulp plus F32_SLACK of the largest |exact| where
+    ``rounded``, else the norm of the difference relative to the norm."""
+    got, exact = got.double(), exact.double()
+    diff = (got - exact).abs()
+    if rounded:
+        over = diff - (BF16_HALF_ULP * exact.abs()
+                       + F32_SLACK * float(exact.abs().max()))
+        return float(diff.max()), float(exact.abs().max()), \
+            int((over > 0).sum())
+    rel = float(diff.norm() / exact.norm())
+    return rel, F32_REL, int(rel > F32_REL)
+
+
+def phase_ssd_fused():
+    """The Mamba-2 layer's fused kernels (``ssd_fused``: the conv and dt's
+    forward, the gated norm's forward and backward, the conv and dt's
+    backward) against their plain versions on the card at
+    mamba2-370m.train's shape (8 x 4096 rows, bf16, 32 heads of 64, state
+    128), both against an f64 evaluation of the same function from the
+    same inputs (the conv's weights rounded to bf16 as both versions round
+    them).  Tolerance: the kernels compute in f32 and round once on the
+    store, so a value stored in bf16 (the conv's output, the gated norm's
+    output, dz, d xBC, d dt) must lie within half a bf16 ulp of the f64
+    value (2^-8 of it) plus 1e-5 of the output's largest magnitude (f32
+    sums and cancellation), at every element; a value kept in f32 (dy,
+    dt's softplus, 1/rms, the parameters' gradients) within 1e-4 of the
+    f64 value's norm.  The plain version rounds each product, partial sum
+    and the gate to bf16, so it may miss those limits: its distances are
+    printed beside.  Two calls give the same bits.  Then each kernel's
+    time, its least bytes at 3.35 TB/s and the plain version's time, each
+    of its launches' device time by the profiler, and
+    the whole stretch forward and backward (``ssd_mixer``, with K4 and
+    K4-bwd) beside its plain composite around the same K4 and K4-bwd
+    (``ssd_mixer_ref``).  Returns the kernels' record."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels import ssd_fused as sf
+    b, s = SSD_FUSED_SHAPE
+    h, p, n, chunk = 32, 64, 128, 128
+    w = sf.Widths(h, p, n, chunk)
+    di, c = h * p, h * p + 2 * n
+    gen = torch.Generator("cuda").manual_seed(SEED + 7)
+    bf16 = torch.bfloat16
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return shift + scale * torch.randn(shape, generator=gen,
+                                           device="cuda")
+
+    proj = rand(b, s, di + c + h).to(bf16)
+    conv_w = rand(4, c, scale=0.5)
+    dt_bias = -4 + 2 * torch.rand((h,), generator=gen, device="cuda")
+    a_log = torch.log(1 + 15 * torch.rand((h,), generator=gen,
+                                          device="cuda"))
+    d_skip, gamma = rand(h, scale=0.1, shift=1), rand(di, scale=0.1, shift=1)
+    y, dx_scan = rand(b, s, h, p), rand(b, s, h, p)
+    dy_in = rand(b, s, h, p)
+    dbm, dcm, ddt, da = rand(b, s, n), rand(b, s, n), rand(b, s, h), rand(h)
+    dout = rand(b, s, di).to(bf16)
+    dproj = torch.empty_like(proj)
+    xbc, dt_raw, z = (proj[..., di:di + c], proj[..., di + c:],
+                      proj[..., :di])
+    f64 = torch.float64
+
+    def exact_conv(xbc, wk, dt, bias, alog):
+        k = wk.shape[0]
+        pad = torch.nn.functional.pad(xbc, (0, 0, k - 1, 0))
+        u = sum(pad[:, i:i + s, :] * wk[i] for i in range(k))
+        out = u * torch.sigmoid(u)
+        return (out[..., :di].reshape(b, s, h, p), out[..., di:di + n],
+                out[..., di + n:], torch.nn.functional.softplus(dt + bias),
+                -torch.exp(alog))
+
+    def exact_gate(y, x, z, d, gm):
+        g = (y + d[None, None, :, None] * x).reshape(b, s, di) \
+            * (z * torch.sigmoid(z))
+        rstd = torch.rsqrt((g * g).mean(-1, keepdim=True) + sf.EPS)
+        return g * rstd * gm, rstd[..., 0]
+
+    rows, names = [], []
+
+    def held(kernel_name, what, got, exact, plain, rounded):
+        err, lim, over = _fused_err(got, exact, rounded)
+        perr, _, pover = _fused_err(plain, exact, rounded)
+        kind = (f"max |err| {err:.3g} (|max| {lim:.3g}), {over} over "
+                f"half a bf16 ulp + {F32_SLACK:g}|max|" if rounded else
+                f"rel {err:.3g} (limit {lim:g})")
+        pkind = (f"max |err| {perr:.3g}, {pover} over" if rounded
+                 else f"rel {perr:.3g}")
+        rows.append(f"[ssd fused] {kernel_name} {what}: kernel {kind}; "
+                    f"plain {pkind}")
+        print(rows[-1], flush=True)
+        if over or not bool(torch.isfinite(got).all()):
+            names.append(f"{kernel_name} {what}")
+
+    def same_bits(kernel_name, call):
+        first = [t.clone() for t in call()]
+        again = call()
+        ok = all(torch.equal(a, b_) for a, b_ in zip(first, again))
+        print(f"[ssd fused] {kernel_name}: two calls bit-identical: {ok}",
+              flush=True)
+        if not ok:
+            names.append(f"{kernel_name} repeat")
+
+    # conv and dt, forward
+    fwd = sf.conv_fwd(proj, conv_w, dt_bias, a_log, w)
+    x, bm, cm, dt_soft, a = fwd
+    plain = (*sf.conv_fwd_ref(xbc, conv_w, di, n),
+             *sf.dt_fwd_ref(dt_raw, dt_bias, a_log))
+    wk = conv_w.to(bf16).to(f64)
+    exact = exact_conv(xbc.to(f64), wk, dt_raw.to(f64), dt_bias.to(f64),
+                       a_log.to(f64))
+    for what, got, pl, ex, rounded in zip(
+            ("x", "B", "C", "dt softplus", "a"), fwd, plain, exact,
+            (True, True, True, False, False)):
+        held("conv fwd", what, got, ex, pl.reshape(got.shape), rounded)
+    same_bits("conv fwd", lambda: sf.conv_fwd(proj, conv_w, dt_bias, a_log,
+                                              w))
+    del plain, exact
+
+    # gated norm, forward and backward
+    out, rstd = sf.gate_fwd(y, x, proj, d_skip, gamma)
+    pout, prstd = sf.gate_fwd_ref(y, x, z, d_skip, gamma)
+    leaves64 = [t.to(f64).requires_grad_() for t in (y, z, d_skip, gamma)]
+    eout, erstd = exact_gate(leaves64[0], x.to(f64), leaves64[1],
+                             leaves64[2], leaves64[3])
+    held("gate fwd", "out", out, eout.detach(), pout, True)
+    held("gate fwd", "1/rms", rstd, erstd.detach(), prstd, False)
+    same_bits("gate fwd", lambda: sf.gate_fwd(y, x, proj, d_skip, gamma))
+    grads = sf.gate_bwd(dout, y, x, proj, d_skip, gamma, rstd, dproj)
+    dz = dproj[..., :di].clone()
+    pdy, pdz, pdd, pdg = sf.gate_bwd_ref(dout, y, x, z, d_skip, gamma)
+    edy, edz, edd, edg = torch.autograd.grad(eout, leaves64, dout.to(f64))
+    for what, got, pl, ex, rounded in (
+            ("dy", grads[0], pdy, edy, False), ("dz", dz, pdz, edz, True),
+            ("d d_skip", grads[1], pdd, edd, False),
+            ("d out_norm", grads[2], pdg, edg, False)):
+        held("gate bwd", what, got, ex, pl, rounded)
+    same_bits("gate bwd", lambda: (*sf.gate_bwd(
+        dout, y, x, proj, d_skip, gamma, rstd, dproj), dproj[..., :di]))
+    del leaves64, eout, erstd, edy, edz, pdy, pdz
+
+    # conv and dt, backward
+    grads = sf.conv_bwd(proj, conv_w, dx_scan, dy_in, d_skip, dbm, dcm, ddt,
+                        dt_bias, da, a, a_log, dproj, w)
+    dxbc, ddt_col = dproj[..., di:di + c].clone(), dproj[..., di + c:].clone()
+    pdxbc, pdw = sf.conv_bwd_ref(xbc, conv_w, dx_scan, dy_in, d_skip, dbm,
+                                 dcm)
+    pddt, pdb, pda = sf.dt_bwd_ref(ddt, da, dt_raw, dt_bias, a_log)
+    leaves64 = [t.to(f64).requires_grad_() for t in (xbc, dt_raw, dt_bias,
+                                                       a_log)]
+    wk64 = wk.clone().requires_grad_()
+    ex = exact_conv(leaves64[0], wk64, *leaves64[1:])
+    gx = (dx_scan.to(f64) + d_skip.to(f64)[None, None, :, None]
+          * dy_in.to(f64))
+    edxbc, edw, eddt, edb, eda = torch.autograd.grad(
+        ex, [leaves64[0], wk64, *leaves64[1:]],
+        [gx, dbm.to(f64), dcm.to(f64), ddt.to(f64), da.to(f64)])
+    for what, got, pl, exv, rounded in (
+            ("d xBC", dxbc, pdxbc, edxbc, True),
+            ("d dt", ddt_col, pddt, eddt, True),
+            ("d conv_w", grads[0], pdw, edw, False),
+            ("d dt_bias", grads[1], pdb, edb, False),
+            ("d a_log", grads[2], pda, eda, False)):
+        held("conv bwd", what, got, exv, pl, rounded)
+    same_bits("conv bwd", lambda: (*sf.conv_bwd(
+        proj, conv_w, dx_scan, dy_in, d_skip, dbm, dcm, ddt, dt_bias, da, a,
+        a_log, dproj, w), dproj[..., di:]))
+    del leaves64, ex, edxbc, edw, eddt, pdxbc, pddt
+    torch.cuda.empty_cache()
+    if names:
+        fail(f"ssd fused kernels off their f64 values: {names}")
+
+    # times: each kernel, its byte bound and its plain version
+    def plain_grad(fn, inputs, wanted, grads_out):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() if i in wanted else t
+                      for i, t in enumerate(inputs)]
+            outs = fn(*leaves)
+        return lambda: torch.autograd.grad(
+            outs, [leaves[i] for i in wanted], grads_out, retain_graph=True)
+
+    conv_plain = lambda: (sf.conv_fwd_ref(xbc, conv_w, di, n),  # noqa: E731
+                          sf.dt_fwd_ref(dt_raw, dt_bias, a_log))
+    cases = [
+        ("conv fwd", lambda: sf.conv_fwd(proj, conv_w, dt_bias, a_log, w),
+         conv_plain,
+         cost.ssd_conv_flops_bytes(b * s, c, h, 2)),
+        ("gate fwd", lambda: sf.gate_fwd(y, x, proj, d_skip, gamma),
+         lambda: sf.gate_fwd_ref(y, x, z, d_skip, gamma),
+         cost.ssd_gate_flops_bytes(b * s, di, h, 2)),
+        ("gate bwd", lambda: sf.gate_bwd(dout, y, x, proj, d_skip, gamma,
+                                         rstd, dproj),
+         plain_grad(lambda *t: sf.gate_fwd_ref(*t)[:1],
+                    (y, x, z, d_skip, gamma), (0, 2, 3, 4), (dout,)),
+         cost.ssd_gate_bwd_flops_bytes(b * s, di, h, 2)),
+        ("conv bwd", lambda: sf.conv_bwd(
+            proj, conv_w, dx_scan, dy_in, d_skip, dbm, dcm, ddt, dt_bias, da,
+            a, a_log, dproj, w),
+         lambda: (sf.conv_bwd_ref(xbc, conv_w, dx_scan, dy_in, d_skip, dbm,
+                                  dcm),
+                  sf.dt_bwd_ref(ddt, da, dt_raw, dt_bias, a_log)),
+         cost.ssd_conv_bwd_flops_bytes(b * s, c, di, h, 2)),
+    ]
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for label, kernel, plain_fn, (flops, nbytes) in cases:
+        ms = device_ms(f"ssd fused {label}", kernel, iters=20)
+        plain_ms = device_ms(f"ssd fused {label} plain", plain_fn, iters=5)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound)):
+            total[k] += v
+        print(f"[ssd fused] {label}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, no library call; {nbytes} bytes, {flops} "
+              f"flops -> bound {bound:.6f} ms (bytes at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s; the flops take "
+              f"{flops / F32_FLOPS * 1e3:.6f} ms at {F32_FLOPS / 1e12:.0f} "
+              f"TFLOP/s f32), {ms / bound:.2f}x its bound, "
+              f"{nbytes / ms / 1e6:.0f} GB/s", flush=True)
+        ssd_launch_times(kernel, key=SSD_FUSED_KERNELS,
+                         tag=f"[ssd fused] {label}:")
+
+    # the whole stretch, forward and backward, around K4 and K4-bwd
+    leaves = [t.detach().requires_grad_() for t in (
+        proj, conv_w, dt_bias, a_log, d_skip, gamma)]
+
+    def stretch(fn):
+        def run():
+            out, _ = fn(*leaves, None, w)
+            return torch.autograd.grad(out, leaves, dout)
+        return run
+
+    fused_ms = device_ms("ssd fused stretch", stretch(sf.ssd_mixer), iters=5)
+    plain_ms = device_ms("ssd plain stretch", stretch(sf.ssd_mixer_ref),
+                         iters=3)
+    print(f"[ssd fused] the stretch between the projections, forward and "
+          f"backward, with K4 and K4-bwd: fused {fused_ms:.3f} ms, plain "
+          f"composite {plain_ms:.3f} ms; the four kernels {total['ms']:.4f} "
+          f"ms against their plain versions' {total['plain_ms']:.4f} ms and "
+          f"their byte bound {total['bound_ms']:.4f} ms", flush=True)
+    return dict(name="ssd_fused", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_fused.cu",
+                replaces=None, ms=total["ms"], plain_ms=total["plain_ms"],
+                bound_ms=total["bound_ms"], bound_by="bytes",
+                library_ms=None, stretch_ms=fused_ms,
+                stretch_plain_ms=plain_ms)
+
+
 def reset_counts():
     from repro_torch.kernels import (flash_attention, gc_compact,
-                                     paged_attention, ssd_scan)
+                                     paged_attention, ssd_fused, ssd_scan)
     flash_attention.launches = 0
     flash_attention.bwd_launches = 0
     paged_attention.launches = 0
     gc_compact.launches = 0
     ssd_scan.launches = 0
     ssd_scan.bwd_launches = 0
+    ssd_fused.launches = 0
+    ssd_fused.bwd_launches = 0
+    ssd_fused.gate_launches = 0
+    ssd_fused.gate_bwd_launches = 0
 
 
 def full_params(cfg):
@@ -1361,6 +1629,10 @@ TRAIN_PARTS = ((("flash_attention_bwd",), "K3-bwd (flash_attention_bwd)"),
                PRODUCT_PART)
 TRAIN_PARTS_SSM = ((("ssd_bwd",), "K4-bwd (ssd_scan_bwd)"),
                    (("ssd_scan",), "K4 forward + recompute"),
+                   (("conv_silu_bwd", "gated_rmsnorm_bwd", "dt_softplus_bwd",
+                     "column_sum"), "fused conv, gate, norm: backward"),
+                   (("conv_silu", "gated_rmsnorm", "dt_softplus"),
+                    "fused conv, gate, norm: forward + recompute"),
                    PRODUCT_PART)
 
 
@@ -3540,8 +3812,9 @@ def tp_mamba_step(mesh, tag):
     global batch 2 a data coordinate, seq 4096, remat "full", bf16 compute:
     at world 1 one step from a state against the one-process step from a
     clone of it (the same bits, through the split path of a model axis of
-    1: the Mamba-2 heads, ``w_in``'s blocks gathered by ``gather_blocks``,
-    the gated norm's ``psum``); with more processes one f32 step at 2
+    1: the Mamba-2 heads, ``w_in``'s blocks gathered by ``gather_blocks``;
+    the row is whole, so the gated norm runs fused and no ``psum``); with
+    more processes one f32 step at 2
     layers against the f64 one-process step (``dp_f32_check``).  Then
     TRAIN_STEPS steps timed by CUDA events, K4 96 and K4-bwd 48 launches a
     step on every rank by the counters and by a profiled step, and each
@@ -3564,7 +3837,7 @@ def tp_mamba_step(mesh, tag):
         dp_bits_check(cfg, mesh, batches[0], "Mamba-2 heads, w_in's "
                       "columns, d_inner, vocabulary and embedding rows",
                       ("to_model", "from_model", "vocab_loss",
-                       "gather_blocks", "psum"))
+                       "gather_blocks"))
     else:
         dp_f32_check(mesh, tag, MAMBA)
     torch.cuda.empty_cache()
@@ -4419,7 +4692,7 @@ def main() -> int:
     phase_build()
     records = [phase_paged_attention(), phase_gc_compact(),
                phase_flash_attention(), phase_flash_attention_bwd(),
-               phase_ssd_scan(), phase_ssd_scan_bwd()]
+               phase_ssd_scan(), phase_ssd_scan_bwd(), phase_ssd_fused()]
     run_serve(SERVE_SMOKE, EXPECT_SMOKE)
 
     # The serve path: counts set to 0 just before, read just after.
@@ -4485,14 +4758,21 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # The SSM training path (its counts are set and read inside): K4 twice
-    # and K4-bwd once a layer a step; then the f32 check and the train
-    # driver.
+    # The SSM training path (its counts are set and read inside): K4 and
+    # the fused stretch around it twice and their backward once a layer a
+    # step; then the f32 check and the train driver.
+    from repro_torch.kernels import ssd_fused as sf
     cfg = get_config("mamba2-370m")
-    _, records[5]["launches"] = phase_train(
+    _, records[5]["launches"], records[6]["launches"], *_ = phase_train(
         cfg, [("ssd_scan", lambda: ss.launches, 2 * cfg.n_layers),
-              ("ssd_scan_bwd", lambda: ss.bwd_launches, cfg.n_layers)],
-        TRAIN_PARTS_SSM, ["ssd_"], TRAIN_LABELS)
+              ("ssd_scan_bwd", lambda: ss.bwd_launches, cfg.n_layers),
+              ("ssd_conv", lambda: sf.launches, 2 * cfg.n_layers),
+              ("ssd_conv_bwd", lambda: sf.bwd_launches, cfg.n_layers),
+              ("ssd_gate", lambda: sf.gate_launches, 2 * cfg.n_layers),
+              ("ssd_gate_bwd", lambda: sf.gate_bwd_launches,
+               cfg.n_layers)],
+        TRAIN_PARTS_SSM, ["ssd_", "conv_silu", "gated_rmsnorm"],
+        TRAIN_LABELS)
     torch.cuda.empty_cache()
     phase_train_mamba_f32_check()
     run_train_driver(["--arch", "mamba2-370m", "--smoke", "--steps", "4",

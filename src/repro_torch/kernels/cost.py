@@ -96,6 +96,52 @@ def ssd_bwd_flops_bytes(b, s, h, p, n, chunk, with_state, with_dfinal):
     return flops, nbytes
 
 
+def ssd_conv_flops_bytes(rows, channels, heads, elem_bytes):
+    """The SSD layer's conv forward and dt (``ssd_fused.conv_fwd``): xBC
+    and dt read once in the compute type, conv_w (4, C) f32, dt_bias and
+    a_log read once; x, B, C, softplus(dt + dt_bias) and a written once in
+    f32.  Per channel and row four multiply-adds and SiLU (4, as XLA counts
+    it); per head and row an add and softplus (6)."""
+    nbytes = (rows * channels * (elem_bytes + 4) + 16 * channels
+              + rows * heads * (elem_bytes + 4) + 12 * heads)
+    return rows * (12 * channels + 7 * heads), nbytes
+
+
+def ssd_gate_flops_bytes(rows, width, heads, elem_bytes):
+    """The gated RMS norm's forward (``ssd_fused.gate_fwd``): y and x (f32)
+    and z read once, D and the gain read once; the output and each row's
+    1/rms (f32) written once.  Per channel and row: y + D x (2), SiLU (4),
+    the gate (1), the sum of squares (2) and the scaling (2)."""
+    nbytes = (rows * width * (8 + 2 * elem_bytes) + 4 * rows + 4 * width
+              + 4 * heads)
+    return 11 * rows * width, nbytes
+
+
+def ssd_gate_bwd_flops_bytes(rows, width, heads, elem_bytes):
+    """The gated RMS norm's backward (``ssd_fused.gate_bwd``): d(out), y, x,
+    z and each row's 1/rms read once, D and the gain read once; dy (f32) and
+    dz written once, and the gain's and D's gradients.  Per channel and
+    row: the forward's gate again (7), two products summed over the row
+    (4), the norm's gradient (3), dy (1), dz (5), D's gradient (2)."""
+    nbytes = (rows * width * (8 + 4 + 3 * elem_bytes) + 4 * rows
+              + 8 * width + 8 * heads)
+    return 22 * rows * width, nbytes
+
+
+def ssd_conv_bwd_flops_bytes(rows, channels, x_channels, heads, elem_bytes):
+    """The conv's and dt's backward (``ssd_fused.conv_bwd``): xBC, dt (the
+    compute type), K4-bwd's dx, dB, dC, ddt, the D skip's dy (f32) read
+    once, conv_w, dt_bias, D, da and a read once; d xBC and d dt written
+    once, and conv_w's, dt_bias's and a_log's gradients.  Per channel and
+    row: the pre-activation again (8), SiLU's derivative (6), d xBC (8),
+    conv_w's gradient (8); D dy (2) per x channel; softplus' derivative and
+    the bias's sum (6) per head."""
+    nbytes = (rows * channels * (2 * elem_bytes + 4) + 4 * rows * x_channels
+              + rows * heads * (2 * elem_bytes + 4) + 32 * channels
+              + 24 * heads)
+    return rows * (30 * channels + 2 * x_channels + 6 * heads), nbytes
+
+
 @dataclasses.dataclass
 class Cost:
     """Flops and bytes of the kernels that ran on meta tensors inside

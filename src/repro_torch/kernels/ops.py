@@ -16,6 +16,7 @@ import torch
 from .flash_attention import flash_attention
 from .gc_compact import gather_page_units
 from .paged_attention import paged_attention
+from . import ssd_fused
 from .ssd_scan import ssd_scan
 
 
@@ -34,6 +35,24 @@ def ssd(x, dt, a, bmat, cmat, chunk: int, initial_state=None):
     """Mamba-2 SSD scan.  x: (B,S,H,P) dt: (B,S,H) a: (H,) bmat/cmat:
     (B,S,N) → (y (B,S,H,P), final_state (B,H,P,N) float32)."""
     return ssd_scan(x, dt, a, bmat, cmat, chunk, initial_state)
+
+
+_OWN_SSD = ssd
+
+
+def ssd_mixer(proj, conv_w, dt_bias, a_log, d_skip, out_norm, initial_state,
+              widths):
+    """The Mamba-2 layer between its two projections, on the packed
+    in-projection output (``ssd_fused.ssd_mixer`` says what it takes and
+    gives).  Its scan is ``ssd`` above, the one seam of the scan: while
+    ``ssd`` is this module's own, the fused kernels run around K4; a run
+    that sets ``ssd`` to another scan (a plain or f64 reference) gets the
+    whole stretch plain around that scan (``ssd_fused.ssd_mixer_ref``), so
+    swapping the scan alone can never leave K4 in place."""
+    run = (ssd_fused.ssd_mixer if ssd is _OWN_SSD
+           else ssd_fused.ssd_mixer_ref)
+    return run(proj, conv_w, dt_bias, a_log, d_skip, out_norm,
+               initial_state, widths)
 
 
 # --------------------------------------------------------------------------

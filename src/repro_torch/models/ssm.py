@@ -1,11 +1,16 @@
 """Mamba-2 (SSD, state-space duality) layers and the pure-SSM model
 (mamba2-370m): params, forward, loss and O(1)-state decode.
 
-The SSD scan of a whole sequence goes through ``kernels.ops.ssd``: the
-hand-written ``ssd_scan`` kernel for a CUDA tensor, its plain chunked
-version (``kernels.ref.ssd_chunked_ref``) for a CPU tensor; where a gradient
-is wanted, its backward is the ``ssd_scan_bwd`` kernel (or, on the CPU,
-``kernels.ref.ssd_chunked_bwd_ref``).  Decode keeps a (B, H, P, N) SSM state
+A whole sequence runs the stretch between the two projections (the
+causal conv, softplus(dt), the SSD scan, the D skip, the gate and the
+gated norm) through ``kernels.ops.ssd_mixer`` on the packed in-projection
+output: for a CUDA tensor the hand-written ``ssd_fused`` kernels around the
+``ssd_scan`` kernel, for a CPU tensor their plain versions around the plain
+chunked scan (``kernels.ref.ssd_chunked_ref``); where a gradient is wanted,
+``ssd_fused.SSDMixer`` runs the fused backward kernels around the
+``ssd_scan_bwd`` kernel (or, on the CPU, the plain versions' gradients and
+``kernels.ref.ssd_chunked_bwd_ref``) and returns one gradient of the packed
+output.  Decode keeps a (B, H, P, N) SSM state
 and a rolling depthwise-conv window per layer and runs plain PyTorch, as the
 JAX package runs plain jnp there.  Stacked layers are walked by a Python
 loop; under grad, ``remat="full"`` runs each layer through non-reentrant
@@ -17,9 +22,10 @@ Under a step that splits the Mamba-2 heads over ``model`` (``a_log``,
 rows over ``inner``), each process runs the layer on its block of heads:
 the z, x and dt columns of its heads and B and C whole, the causal conv
 over its x channels and B and C, K4 at its heads, the gated norm over the
-whole ``d_inner`` (``runtime.psum`` of the sum of squares) and ``w_out``'s
-rows, whose partial output ``from_model`` adds up (``_head_split``,
-``_in_proj``).  Decode keeps the conv window whole on every process and
+whole ``d_inner`` (``runtime.psum`` of the sum of squares: the composite
+``rmsnorm``, outside ``ops.ssd_mixer``, which then returns y + D x) and
+``w_out``'s rows, whose partial output ``from_model`` adds up
+(``_head_split``, ``_in_proj``).  Decode keeps the conv window whole on every process and
 the SSM state of its heads.  Such a step hands the params over as FSDP
 blocks split over ``data``: each layer gathers its own weights whole over
 ``data`` when it runs (``_layer``, ``parallel.ctx.gather_layer``; under
@@ -40,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..kernels import ops
 from ..kernels.ref import ssd_chunked_ref
+from ..kernels.ssd_fused import Widths, causal_conv_ref
 from ..parallel import runtime
 from ..parallel.ctx import Split, constrain, gather_layer
 from ..ranges import part
@@ -70,21 +77,14 @@ def ssd_layer_specs(cfg: ModelConfig) -> Params:
     }
 
 
-def _split_proj(cfg: ModelConfig, proj):
-    di, st = cfg.d_inner, cfg.ssm_state
-    z = proj[..., :di]
-    xbc = proj[..., di:di + di + 2 * st]
-    dt = proj[..., di + di + 2 * st:]
-    return z, xbc, dt
+def _split_proj(proj, nz: int, nxbc: int):
+    """The packed in-projection's (z, xbc, dt) columns: z of ``nz``, xbc of
+    ``nxbc`` (the conv's channels), dt the rest."""
+    return proj[..., :nz], proj[..., nz:nz + nxbc], proj[..., nz + nxbc:]
 
 
-def _causal_conv(xbc, conv_w):
-    """Depthwise causal conv along seq: xbc (B,S,C), conv_w (K,C)."""
-    k = conv_w.shape[0]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
-    out = sum(pad[:, i:i + xbc.shape[1], :] * conv_w[i][None, None, :]
-              for i in range(k))
-    return F.silu(out)
+# Depthwise causal conv along seq, then SiLU: xbc (B,S,C), conv_w (K,C).
+_causal_conv = causal_conv_ref
 
 
 def _ssm_inputs(lp: Params, dt):
@@ -127,10 +127,11 @@ def _columns(w, ranges):
 
 def _in_proj(lp: Params, xn, cfg: ModelConfig, hs: Optional[Split],
              whole_x: bool = False):
-    """(z, xbc, dt, conv_w) of this process's heads [h0, h1): the
-    in-projection's z, x and dt columns of those heads (every x column
-    where ``whole_x``: decode keeps the whole conv window) and B and C,
-    and ``conv_w``'s columns for xbc's channels.
+    """(proj, conv_w) of this process's heads [h0, h1): the in-projection's
+    output packed as z | xbc | dt, z and dt the columns of those heads, xbc
+    their x columns (every x column where ``whole_x``: decode keeps the
+    whole conv window) and B and C; and ``conv_w``'s columns for xbc's
+    channels, as many as xbc's.
 
     With the heads split, the packed ``w_in`` (z | x | B | C | dt, split
     into even blocks over ``model`` that do not fall on its components) is
@@ -147,8 +148,7 @@ def _in_proj(lp: Params, xn, cfg: ModelConfig, hs: Optional[Split],
     if hs is None:
         if ws is not None:
             w_in = runtime.gather_model(w_in, ws.dim, ws.group)
-        z, xbc, dt = _split_proj(cfg, xn @ w_in.to(cdt))
-        return z, xbc, dt, conv_w
+        return xn @ w_in.to(cdt), conv_w
     w_in = (runtime.to_model(w_in, hs.group) if ws is None
             else runtime.gather_blocks(w_in, ws.dim, hs.group))
     conv_w = runtime.to_model(conv_w, hs.group)
@@ -160,10 +160,14 @@ def _in_proj(lp: Params, xn, cfg: ModelConfig, hs: Optional[Split],
         (h0 * p, h1 * p), (di + xs[0], di + xs[1]),
         (2 * di, 2 * di + 2 * st),
         (2 * di + 2 * st + h0, 2 * di + 2 * st + h1)]).to(cdt)
-    nz, nxbc = (h1 - h0) * p, xs[1] - xs[0] + 2 * st
-    conv_w = _columns(conv_w, [xs, (di, di + 2 * st)])
-    return (proj[..., :nz], proj[..., nz:nz + nxbc], proj[..., nz + nxbc:],
-            conv_w)
+    return proj, _columns(conv_w, [xs, (di, di + 2 * st)])
+
+
+def _out_proj(lp: Params, y, cfg: ModelConfig, hs: Optional[Split]):
+    """``w_out`` on the normed y: with the heads split, this process's rows,
+    the partial output added up by ``from_model``."""
+    out = y @ lp["w_out"].to(cfg.compute_dtype)
+    return out if hs is None else runtime.from_model(out, hs.group)
 
 
 def _gated_out(lp: Params, y, z, cfg: ModelConfig,
@@ -175,8 +179,7 @@ def _gated_out(lp: Params, y, z, cfg: ModelConfig,
     y = y.to(cfg.compute_dtype) * F.silu(z)
     y = rmsnorm(y, lp["out_norm"],
                 sum_over=None if hs is None else (hs.group, cfg.d_inner))
-    out = y @ lp["w_out"].to(cfg.compute_dtype)
-    return out if hs is None else runtime.from_model(out, hs.group)
+    return _out_proj(lp, y, cfg, hs)
 
 
 def _heads(cfg: ModelConfig, hs: Optional[Split]):
@@ -188,27 +191,27 @@ def ssd_layer(lp: Params, x, cfg: ModelConfig,
               return_state: bool = False):
     """Full Mamba-2 block: in-proj → conv → SSD → gated out-proj (on this
     process's heads where the step splits them; ``initial_state`` and the
-    state returned are then those heads')."""
-    cdt = cfg.compute_dtype
+    state returned are then those heads').  The stretch between the
+    projections is ``ops.ssd_mixer`` on the packed in-projection output.
+    The gated norm runs inside it where this process holds the whole row
+    (the heads whole, or split into one block); with the heads split over
+    more processes the norm over the row stays here, a composite whose sum
+    of squares is added up across them (``_gated_out``)."""
     x = constrain(x, ("act_batch", None, None))
     hs = _head_split(cfg)
     xn = norm(x, lp["norm"], cfg)
-    z, xbc, dt, conv_w = _in_proj(lp, xn, cfg, hs)
-    xbc = _causal_conv(xbc, conv_w.to(cdt))
+    proj, conv_w = _in_proj(lp, xn, cfg, hs)
     h0, h1 = _heads(cfg, hs)
-    st = cfg.ssm_state
-    di = (h1 - h0) * cfg.ssm_headdim
-    b, s, _ = xbc.shape
-    # x, B and C are strided views of xbc (and .float() of an f32 view is
-    # the view): the kernel takes contiguous inputs.
-    xh = xbc[..., :di].float().reshape(b, s, h1 - h0, cfg.ssm_headdim)
-    bmat = xbc[..., di:di + st].float().contiguous()
-    cmat = xbc[..., di + st:].float().contiguous()
-    dt_soft, a = _ssm_inputs(lp, dt)
-    y, state = ops.ssd(xh.contiguous(), dt_soft, a, bmat, cmat,
-                       cfg.ssm_chunk, initial_state)
-    y = y + lp["d_skip"].float()[None, None, :, None] * xh
-    out = _gated_out(lp, y.reshape(b, s, di), z, cfg, hs)
+    widths = Widths(h1 - h0, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
+    whole_row = hs is None or hs.size == 1
+    y, state = ops.ssd_mixer(proj, conv_w, lp["dt_bias"], lp["a_log"],
+                             lp["d_skip"], lp["out_norm"] if whole_row
+                             else None, initial_state, widths)
+    if whole_row:
+        out = _out_proj(lp, y, cfg, hs)
+    else:
+        out = _gated_out(lp, y, proj[..., :widths.heads * widths.headdim],
+                         cfg, hs)
     if return_state:
         return x + out, state
     return x + out
@@ -223,12 +226,14 @@ def ssd_decode_step(lp: Params, x1, conv_state, ssm_state, cfg: ModelConfig):
     cdt = cfg.compute_dtype
     hs = _head_split(cfg)
     xn = norm(x1, lp["norm"], cfg)
-    z, xbc, dt, conv_w = _in_proj(lp, xn, cfg, hs, whole_x=True)
+    proj, conv_w = _in_proj(lp, xn, cfg, hs, whole_x=True)
+    h0, h1 = _heads(cfg, hs)
+    z, xbc, dt = _split_proj(proj, (h1 - h0) * cfg.ssm_headdim,
+                             conv_w.shape[-1])
     window = torch.cat([conv_state, xbc], dim=1)              # (B,K,C)
     conv_out = F.silu(torch.einsum("bkc,kc->bc", window,
                                    conv_w.to(cdt)))[:, None]
     di, st, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_headdim
-    h0, h1 = _heads(cfg, hs)
     xh = conv_out[..., h0 * p:h1 * p].reshape(-1, h1 - h0,
                                               p).float()      # (B,H,P)
     bv = conv_out[:, 0, di:di + st].float()                   # (B,N)

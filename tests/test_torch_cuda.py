@@ -15,6 +15,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gc_compact, ops, ref
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd_fused
 
 pytestmark = pytest.mark.cuda
 
@@ -1011,11 +1012,12 @@ def test_ssd_scan_bwd_routes_hold_tolerance_and_repeat(cuda, b, s, h, p, n,
 
 def test_mamba2_train_step_runs_through_both_kernels(cuda):
     """build_train_step for mamba2-370m SMOKE in f32 under remat "full", 3
-    steps: K4 twice a layer a step (forward and recompute) and K4-bwd once;
-    and the first step's loss and grad norm against the same step with the
-    scan replaced by its plain version (autograd through
-    ref.ssd_chunked_ref): f32, sums in other orders, 1e-5 and 1e-4
-    relative."""
+    steps: K4 and the fused conv and gated norm twice a layer a step
+    (forward and recompute), K4-bwd and their backward once; and the first
+    step's loss and grad norm against the same step with the scan replaced
+    by its plain version (autograd through ref.ssd_chunked_ref, which
+    ``ops.ssd_mixer`` then runs the whole stretch around plain: no kernel
+    counted): f32, sums in other orders, 1e-5 and 1e-4 relative."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ssd_scan
     from repro_torch.models import ssm
@@ -1034,12 +1036,17 @@ def test_mamba2_train_step_runs_through_both_kernels(cuda):
         try:
             for i in range(3 if impl == "kernel" else 1):
                 ssd_scan.launches = ssd_scan.bwd_launches = 0
+                ssd_fused.launches = ssd_fused.bwd_launches = 0
+                ssd_fused.gate_launches = ssd_fused.gate_bwd_launches = 0
                 params, opt, m = step(params, opt,
                                       synthetic_batch(cfg, i, 2, 64))
                 torch.cuda.synchronize()
                 want = ((2 * cfg.n_layers, cfg.n_layers) if impl == "kernel"
                         else (0, 0))
                 assert (ssd_scan.launches, ssd_scan.bwd_launches) == want
+                assert (ssd_fused.launches, ssd_fused.bwd_launches) == want
+                assert (ssd_fused.gate_launches,
+                        ssd_fused.gate_bwd_launches) == want
                 assert np.isfinite(float(m["loss"])) and \
                     np.isfinite(float(m["grad_norm"]))
                 if i == 0:
@@ -1445,3 +1452,55 @@ def test_torch_serve_example_on_the_card(cuda):
     assert res.stdout.splitlines()[-1] == (
         "completed=16 decode_steps=34 compactions=7 compaction_dmas=248 "
         "fragmentation=0.000")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("h,p,n,chunk,split", [
+    (8, 16, 16, 16, False), (32, 64, 128, 128, False),
+    (128, 64, 16, 128, False), (8, 64, 128, 128, True)])
+def test_ssd_fused_stretch_matches_its_plain_composite(cuda, h, p, n, chunk,
+                                                       split, dtype, tol):
+    """ssd_fused.ssd_mixer (the fused kernels around K4 and K4-bwd) against
+    ssd_mixer_ref (the plain composite around the same K4 and K4-bwd) on
+    the card: the output, the final state and the gradients of the packed
+    projection and the five parameters, at mamba2's SMOKE and full widths
+    and jamba's, and with the heads split (no norm).  Tolerance of the
+    largest magnitude: 1e-4 in f32 (sums in other orders, FMA), 5e-2 in
+    bf16 (the plain composite rounds each product, partial sum and the
+    gate to bf16, the kernels once).  Each kernel's counter counts one
+    call (the gated norm's none with the heads split)."""
+    rng = np.random.default_rng(h + n)
+    b, s, di, c = 2, 256, h * p, h * p + 2 * n
+    f = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(cuda)
+    leaves = [f(b, s, di + c + h).to(dtype), 0.5 * f(4, c),
+              torch.from_numpy(rng.uniform(-4, -2, h).astype(np.float32))
+              .to(cuda),
+              torch.from_numpy(np.log(rng.uniform(1, 16, h))
+                               .astype(np.float32)).to(cuda),
+              1 + 0.1 * f(h), 1 + 0.1 * f(di)]
+    widths = ssd_fused.Widths(h, p, n, chunk)
+    res = []
+    for mixer in (ssd_fused.ssd_mixer, ssd_fused.ssd_mixer_ref):
+        xs = [t.detach().clone().requires_grad_() for t in leaves]
+        counters = ("launches", "bwd_launches", "gate_launches",
+                    "gate_bwd_launches")
+        before = [getattr(ssd_fused, c) for c in counters]
+        out, state = mixer(*xs[:5], None if split else xs[5], None, widths)
+        g = torch.randn(out.shape, generator=torch.Generator(cuda)
+                        .manual_seed(1), device=cuda).to(out.dtype)
+        grads = torch.autograd.grad([out, state],
+                                    xs[:5] + ([] if split else xs[5:]),
+                                    [g, torch.ones_like(state)])
+        torch.cuda.synchronize()
+        calls = [getattr(ssd_fused, c) - n for c, n in zip(counters, before)]
+        gate = 0 if split else 1
+        assert calls == ([1, 1, gate, gate] if mixer is ssd_fused.ssd_mixer
+                         else [0, 0, 0, 0])
+        res.append([out, state, *grads])
+    for i, (got, want) in enumerate(zip(*res)):
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        assert torch.isfinite(got).all() and err <= tol * scale, (i, err,
+                                                                  scale)

@@ -122,9 +122,11 @@ def test_dryrun_cli_skips_as_jax_and_fails_nothing(tmp_path):
 
 
 def test_dryrun_meta_run_reaches_the_kernels_meta_branches(monkeypatch):
-    """A chunked-attention transformer and Mamba-2 train step: K3 and
-    K3-bwd, K4 and K4-bwd add their formulas, once a layer each (and K3
-    and K4 once more a layer for the recompute under remat "full")."""
+    """A chunked-attention transformer train step and a Mamba-2 prefill:
+    K3 and K3-bwd add their formulas, once a layer each (and K3 once more
+    a layer for the recompute under remat "full"); K4 and the SSD layer's
+    fused conv once a layer (its heads split over the 16-wide model axis,
+    the gated norm stays a composite over processes)."""
     monkeypatch.setattr(dryrun, "get_config", lambda arch: dataclasses.replace(
         get_config(arch), attn_impl="chunked"))
     r = dryrun.run_cell("olmo-1b", "train_4k", False, "")
@@ -132,7 +134,7 @@ def test_dryrun_meta_run_reaches_the_kernels_meta_branches(monkeypatch):
     assert r["cost"]["kernel_calls"] == {"flash_attention": 32,
                                          "flash_attention_bwd": 16}
     r = dryrun.run_cell("mamba2-370m", "prefill_32k", False, "")
-    assert r["cost"]["kernel_calls"] == {"ssd_scan": 48}
+    assert r["cost"]["kernel_calls"] == {"ssd_scan": 48, "ssd_conv": 48}
 
 
 def test_meta_counter_counts_products_bytes_and_peak():

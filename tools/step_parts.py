@@ -11,8 +11,9 @@ prints, to standard error, each (part, pass) of the program's ranges
 step, each pass's and each part's total, the device time in no program
 range, the share of the steps' device time that falls in a range
 (``parts.step_coverage``), the operations that take the most time in
-none, and the launches of the program's kernels (K3, K3-bwd, K4, K4-bwd)
-by the range they fall in.  Lines start with ``[parts]``.
+none, the launches of the program's kernels (K3, K3-bwd, K4, K4-bwd)
+by the range they fall in, and every kernel counter of the program
+(``gpubench/port.kernel_calls``) a step.  Lines start with ``[parts]``.
 """
 
 from __future__ import annotations
@@ -68,6 +69,9 @@ def report(run) -> None:
             say(f"{name} launches ({run.calls.get(k.COUNTER, 0)} calls by "
                 "the counter): " + ", ".join(f"{o} {n}" for o, n in
                                              sorted(where.items(), key=str)))
+    say("the program's counters a step: " + ", ".join(
+        f"{name} {n / steps:g}" for name, n in sorted(run.calls.items())
+        if n))
 
 
 def _traced(trace):
